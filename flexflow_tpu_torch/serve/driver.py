@@ -1,0 +1,107 @@
+"""``python -m flexflow_tpu_torch --serve``: the serving driver.
+
+Counterpart of ``flexflow_tpu/serve/driver.py`` for one colocated
+engine.  It builds a :class:`~flexflow_tpu_torch.models.transformer.GPTDecoder`
+with random weights from ``--seed``, stands up the continuous-batching
+:class:`~flexflow_tpu_torch.serve.engine.ServeEngine` on ``--device``,
+replays a seeded synthetic open-loop workload against it and prints ONE
+JSON summary line (plus the ``--metrics-out`` ``ffmetrics/1`` stream).
+Defaults are smoke-sized; pass the model flags for a real width::
+
+    python -m flexflow_tpu_torch --serve --hidden 768 --heads 12 \\
+        --ff-dim 3072 --num-layers 12 --vocab 50257 --seq 1024 \\
+        --requests 16 --prompt-len 128:512 --max-new 32:64 \\
+        --serve-slots 8 --metrics-out serve.jsonl
+
+``--device cpu`` runs the plain PyTorch path on the CPU.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+from typing import List, Optional
+
+__all__ = ["main"]
+
+
+def _int_pair(s: str) -> tuple:
+    lo, _, hi = s.partition(":")
+    return (int(lo), int(hi or lo))
+
+
+def _parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(prog="python -m flexflow_tpu_torch --serve")
+    m = p.add_argument_group("model")
+    m.add_argument("--hidden", type=int, default=64)
+    m.add_argument("--heads", type=int, default=4)
+    m.add_argument("--ff-dim", type=int, default=128)
+    m.add_argument("--num-layers", type=int, default=2)
+    m.add_argument("--vocab", type=int, default=256)
+    m.add_argument("--seq", type=int, default=64)
+    m.add_argument("--seed", type=int, default=0, help="weight seed")
+    t = p.add_argument_group("traffic")
+    t.add_argument("--requests", type=int, default=16)
+    t.add_argument("--rate", type=float, default=0.0, help="arrivals/s; 0 = all at t=0")
+    t.add_argument("--prompt-len", type=_int_pair, default=(4, 12), help="LO:HI")
+    t.add_argument("--max-new", type=_int_pair, default=(4, 24), help="LO:HI")
+    t.add_argument("--traffic-seed", type=int, default=0)
+    e = p.add_argument_group("engine")
+    e.add_argument("--serve-slots", type=int, default=4)
+    e.add_argument("--serve-block-size", type=int, default=16)
+    e.add_argument("--serve-prefill-chunk", type=int, default=32)
+    e.add_argument("--serve-sync-every", type=int, default=4)
+    e.add_argument("--serve-attn", default="auto", choices=("auto", "paged", "gather"))
+    e.add_argument("--metrics-out", default=None)
+    e.add_argument("--device", default="cuda")
+    return p
+
+
+def main(argv: Optional[List[str]] = None) -> int:
+    args = _parser().parse_args(argv)
+
+    from flexflow_tpu_torch.models.transformer import GPTDecoder
+    from flexflow_tpu_torch.ops.cuda import paged_attention as pa
+    from flexflow_tpu_torch.serve import ServeEngine, TrafficSpec, synthetic_requests
+
+    model = GPTDecoder(
+        seq=args.seq, hidden=args.hidden, heads=args.heads, ff_dim=args.ff_dim,
+        num_layers=args.num_layers, vocab=args.vocab, seed=args.seed, device=args.device,
+    )
+    engine = ServeEngine(
+        model, slots=args.serve_slots, block_size=args.serve_block_size,
+        prefill_chunk=args.serve_prefill_chunk, sync_every=args.serve_sync_every,
+        metrics_out=args.metrics_out, attn=args.serve_attn, device=args.device,
+    )
+    spec = TrafficSpec(
+        n_requests=args.requests, seed=args.traffic_seed, rate_rps=args.rate,
+        prompt_len=args.prompt_len, max_new=args.max_new, vocab=args.vocab,
+    )
+    reqs = synthetic_requests(spec)
+    for r in reqs:
+        # clamp budgets to the model's position range so every request serves
+        r.max_new_tokens = max(1, min(r.max_new_tokens, args.seq - r.prompt_len))
+    launches0 = pa.LAUNCHES
+    report = engine.run(reqs)
+    out = {
+        "metric": "serve_demo",
+        "serve_traffic": spec.identity,
+        "model": f"gpt L{args.num_layers} h{args.hidden} v{args.vocab} s{args.seq}",
+        "device": str(engine.device),
+        "slots": args.serve_slots,
+        "block_size": engine.kv.block_size,
+        "num_blocks": engine.kv.num_blocks,
+        "sync_every": engine.sync_every,
+        "attn_kernel": engine.attn_kernel,
+        "attn_launches": pa.LAUNCHES - launches0,
+        "kv_dtype": engine.kv.kv_dtype,
+        "kv_bytes_per_token": engine.kv.bytes_per_token,
+        **report.to_dict(),
+    }
+    print(json.dumps(out), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

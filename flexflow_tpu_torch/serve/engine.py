@@ -1,0 +1,520 @@
+"""Paged decode/prefill programs and the one-sync-per-window serve loop.
+
+Counterpart of ``flexflow_tpu/serve/engine.py`` ``ServeEngine``, as
+plain PyTorch functions over the paged pools of a
+:class:`~flexflow_tpu_torch.serve.kvcache.PagedKVCache`:
+
+* the **decode step** (:meth:`ServeEngine._decode`) serves every slot
+  with one query row each; idle lanes carry an all-zero table row, so
+  their K/V writes land in the trash block;
+* the **batched chunked prefill** (:meth:`ServeEngine._prefill`)
+  ingests up to ``prefill_chunk`` prompt positions of EVERY mid-prefill
+  slot in one dispatch per window; padded rows and idle lanes write the
+  trash block;
+* the loop runs in **flush windows**: one prefill dispatch, then up to
+  ``sync_every`` decode steps whose next tokens are chained on the
+  device (greedy argmax on the device), then ONE device-to-host copy
+  that drains the window's tokens, finishes and recycles slots, admits
+  queued requests and writes one ``ffmetrics/1`` record.
+
+Both programs scatter the new K/V into the pools IN PLACE, then attend
+through :func:`~flexflow_tpu_torch.ops.cuda.paged_attention.paged_attention`
+(the CUDA kernel, ``attn="paged"``) or its plain version
+(``attn="gather"``).  ``attn="auto"`` takes the kernel on a CUDA device
+and the gather on the CPU.  Float32 matmuls stay float32: the engine
+turns TF32 off for CUDA matmuls.
+
+Not ported yet (ROADMAP.md): temperature sampling, speculative
+draft/verify, weight-only int8, quantized pools, preemption, drain and
+resume, spans, SLO, watchdog and shedding, and the fault plan.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+import time
+from typing import Any, Dict, List, Optional, Sequence, Union
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from flexflow_tpu_torch.device import DEFAULT_DEVICE, resolve_device
+from flexflow_tpu_torch.models.gpt_decode import layer_norm, make_cast
+from flexflow_tpu_torch.models.transformer import GPTDecoder
+from flexflow_tpu_torch.obs.metrics import MetricsStream, step_record
+from flexflow_tpu_torch.ops.cuda.paged_attention import (
+    paged_attention,
+    paged_attention_plain,
+    resolve_serve_attn,
+)
+from flexflow_tpu_torch.serve.kvcache import PagedKVCache
+from flexflow_tpu_torch.serve.scheduler import (
+    ContinuousBatchingScheduler,
+    Request,
+    RequestState,
+)
+
+__all__ = ["ServeEngine", "ServeReport"]
+
+
+def _pct(vals: Sequence[Optional[float]], q: float) -> Optional[float]:
+    vals = [v for v in vals if v is not None]
+    if not vals:
+        return None
+    return float(np.percentile(np.asarray(vals, np.float64), q))
+
+
+@dataclasses.dataclass
+class ServeReport:
+    """End-of-run aggregate (the driver's summary payload)."""
+
+    wall_s: float
+    new_tokens: int
+    tok_s: float
+    requests_finished: int
+    requests_rejected: int
+    ttft_p50_ms: Optional[float]
+    ttft_p99_ms: Optional[float]
+    tpot_p50_ms: Optional[float]
+    tpot_p99_ms: Optional[float]
+    occupancy_mean: float
+    windows: int
+    decode_steps: int
+    prefill_chunks: int
+    host_syncs: int
+    per_request: List[Dict[str, Any]]
+    prefix_hit_rate: Optional[float] = None
+    per_tier: Dict[str, Dict[str, Any]] = dataclasses.field(default_factory=dict)
+    per_tenant: Dict[str, Dict[str, Any]] = dataclasses.field(default_factory=dict)
+    peak_active: int = 0
+    requests_expired: int = 0
+    # one batched prefill dispatch per window with any mid-prefill slot
+    # (prefill_chunks counts per-slot logical chunks)
+    prefill_dispatches: int = 0
+    prefill_attn_kernel: Optional[str] = None
+
+    def to_dict(self) -> Dict[str, Any]:
+        d = dataclasses.asdict(self)
+        d.pop("per_request")
+        return d
+
+
+class ServeEngine:
+    """Continuous-batching serving of one :class:`GPTDecoder` on ``device``.
+
+    The model's parameters must already live on ``device``.  The KV pool
+    defaults to full provisioning (``slots`` x blocks-per-max-seq +
+    trash); a smaller ``num_blocks`` makes requests share the pool, and
+    admission then waits on the free list.
+    """
+
+    def __init__(
+        self,
+        model: GPTDecoder,
+        *,
+        slots: int = 4,
+        block_size: int = 16,
+        num_blocks: Optional[int] = None,
+        prefill_chunk: int = 32,
+        sync_every: int = 4,
+        eos_id: Optional[int] = None,
+        metrics_out: Optional[str] = None,
+        prefix_sharing: bool = True,
+        attn: str = "auto",
+        kv_dtype: str = "fp32",
+        dtype: torch.dtype = torch.float32,
+        device: Union[str, torch.device] = DEFAULT_DEVICE,
+    ) -> None:
+        self.device = resolve_device(device)
+        if self.device.type == "cuda" and self.device.index is None:
+            self.device = torch.device("cuda", torch.cuda.current_device())
+        on = {p.device for p in model.parameters()}
+        if on != {self.device}:
+            raise ValueError(
+                f"model parameters are on {sorted(map(str, on))}, the engine on {self.device}"
+            )
+        if self.device.type == "cuda":
+            # float32 matmuls stay float32 (TF32 keeps ~3 decimal digits);
+            # this is PyTorch's default, set here explicitly
+            torch.backends.cuda.matmul.allow_tf32 = False
+        self.spec = model.spec(slots)
+        self.slots = int(slots)
+        self.prefill_chunk = max(1, int(prefill_chunk))
+        self.sync_every = max(1, int(sync_every))
+        self.eos_id = eos_id
+        self.attn_kernel = resolve_serve_attn(attn, self.device)
+        self.kv_dtype = kv_dtype
+        spec = self.spec
+        self.kv = PagedKVCache(
+            spec.num_layers, spec.heads, spec.head_dim,
+            slots=self.slots, block_size=block_size, num_blocks=num_blocks,
+            max_seq_len=spec.seq, dtype=dtype, kv_dtype=kv_dtype,
+            prefix_sharing=prefix_sharing, device=self.device,
+        )
+        self.sched = ContinuousBatchingScheduler(self.slots, self.kv)
+        self.metrics = MetricsStream(metrics_out)
+        cast = make_cast(dtype)
+        # the weights the programs read, cast once to the compute dtype
+        # (no copy when it is float32)
+        self._params = {
+            layer: {leaf: cast(t) for leaf, t in leaves.items()}
+            for layer, leaves in model.param_tree().items()
+        }
+        B, P = self.slots, self.prefill_chunk
+        MB = self.kv.max_blocks_per_seq
+        self._scale = 1.0 / math.sqrt(spec.head_dim)
+        self._lane = torch.arange(B, device=self.device)
+        self._rows = torch.arange(P, device=self.device)
+        self._pinned: Dict[str, torch.Tensor] = {}
+        # persistent host staging for the batched prefill chunk arrays
+        self._pf_toks = np.zeros((B, P), np.int32)
+        self._pf_start = np.zeros((B,), np.int32)
+        self._pf_n = np.zeros((B,), np.int32)
+        self._pf_bt = np.zeros((B, MB), np.int32)
+
+        # warm both programs once (this builds the CUDA kernel and sets up
+        # the BLAS handles before any request's clock starts); all-zero
+        # tables, so only the trash block is written
+        z = np.zeros((B,), np.int32)
+        bt0 = np.zeros((B, MB), np.int32)
+        self._decode(*self._to_device("decode", z, z, bt0))
+        self._prefill(*self._to_device(
+            "prefill", np.zeros((B, P), np.int32), z, np.ones((B,), np.int32), bt0,
+        ))
+        if self.device.type == "cuda":
+            # the staging buffers are refilled by the first window
+            torch.cuda.synchronize(self.device)
+
+        self.host_syncs = 0
+        self.windows = 0
+        self.decode_steps = 0
+        self.prefill_chunks = 0
+        self.prefill_dispatches = 0
+        self.peak_active = 0
+        self._occ_sum = 0.0
+
+    # --- host -> device staging -------------------------------------------
+    def _to_device(self, key: str, *arrays: np.ndarray) -> List[torch.Tensor]:
+        """Copy int32 host arrays to the device in ONE transfer and return
+        device views of the same shapes.  On CUDA the copy goes through a
+        pinned buffer per ``key`` without blocking the host; the buffer
+        is refilled only after the window's flush has synchronized."""
+        flat = np.concatenate([np.asarray(a, np.int32).reshape(-1) for a in arrays])
+        if self.device.type == "cuda":
+            buf = self._pinned.get(key)
+            if buf is None or buf.numel() != flat.size:
+                buf = torch.empty(flat.size, dtype=torch.int32, pin_memory=True)
+                self._pinned[key] = buf
+            buf.numpy()[:] = flat
+            dev = buf.to(self.device, non_blocking=True)
+        else:
+            dev = torch.from_numpy(flat)
+        out, i = [], 0
+        for a in arrays:
+            n = int(np.prod(a.shape))
+            out.append(dev[i:i + n].view(a.shape))
+            i += n
+        return out
+
+    # --- the two programs --------------------------------------------------
+    def _attend(self, q, i, pos, bt):
+        """Attention of ``q`` (B, G, H, D) over layer ``i``'s pool."""
+        attend = paged_attention if self.attn_kernel == "paged" else paged_attention_plain
+        return attend(q, self.kv.cache_k[i], self.kv.cache_v[i], pos, bt, self._scale)
+
+    def _layers(self, x, blk, off, pos, bt):
+        """The decoder stack over rows ``x`` (B, G, hidden) whose K/V go to
+        pool block ``blk`` offset ``off`` (both (B, G)); row ``g`` of lane
+        ``b`` sits at ``pos[b] + g``."""
+        p, spec = self._params, self.spec
+        B, G, hid = x.shape
+        H, D = spec.heads, spec.head_dim
+        for i in range(spec.num_layers):
+            pa = p[f"dec{i}_attn"]
+            h = layer_norm(p[f"dec{i}_ln0"], x, spec.eps).reshape(B * G, hid)
+            q, k, v = h @ pa["wq"], h @ pa["wk"], h @ pa["wv"]
+            if spec.has_bias:
+                q, k, v = q + pa["bq"], k + pa["bk"], v + pa["bv"]
+            # scatter this chunk's K/V into the pools IN PLACE, then attend:
+            # row g's mask reaches the chunk's own rows 0..g
+            self.kv.cache_k[i, blk, :, off, :] = k.reshape(B, G, H, D).to(self.kv.dtype)
+            self.kv.cache_v[i, blk, :, off, :] = v.reshape(B, G, H, D).to(self.kv.dtype)
+            o = self._attend(q.reshape(B, G, H, D), i, pos, bt)
+            o = o.reshape(B * G, H * D) @ pa["wo"]
+            if spec.has_bias:
+                o = o + pa["bo"]
+            x = x + o.reshape(B, G, hid)
+            h = layer_norm(p[f"dec{i}_ln1"], x, spec.eps).reshape(B * G, hid)
+            p0, p1 = p[f"dec{i}_ff0"], p[f"dec{i}_ff1"]
+            f = F.gelu(h @ p0["kernel"] + p0["bias"], approximate="tanh")
+            x = x + (f @ p1["kernel"] + p1["bias"]).reshape(B, G, hid)
+        return x
+
+    def _head(self, x):
+        """Final layer norm, LM head, float32 softmax, greedy argmax."""
+        p = self._params
+        x = layer_norm(p["final_ln"], x, self.spec.eps)
+        probs = torch.softmax((x @ p["lm_head"]["kernel"]).float(), dim=-1)
+        return torch.argmax(probs, dim=-1).to(torch.int32), probs
+
+    @torch.inference_mode()
+    def _decode(self, tok, pos, bt):
+        """One decode step for every lane: ``tok``/``pos`` (B,) int32,
+        ``bt`` (B, MB) int32.  Returns (next token (B,) int32, probs)."""
+        p = self._params
+        BS, MB, S = self.kv.block_size, self.kv.max_blocks_per_seq, self.spec.seq
+        pos_l = pos.long()
+        x = p["tok_embed"]["kernel"][tok.long()] + p["pos_embed"]["value"][pos_l.clamp(0, S - 1)]
+        blk = bt.long()[self._lane, (pos_l // BS).clamp(0, MB - 1)]
+        off = (pos_l % BS).clamp(0, BS - 1)
+        x = self._layers(x[:, None], blk[:, None], off[:, None], pos, bt)
+        return self._head(x[:, 0])
+
+    @torch.inference_mode()
+    def _prefill(self, toks, start, n_valid, bt):
+        """One chunk of every mid-prefill slot: ``toks`` (B, P), ``start``
+        and ``n_valid`` (B,), ``bt`` (B, MB), all int32.  Lanes with
+        ``n_valid == 0`` ride along on the trash block.  Returns the next
+        token after each lane's last valid row, and its probs."""
+        p = self._params
+        BS, MB, S = self.kv.block_size, self.kv.max_blocks_per_seq, self.spec.seq
+        P = toks.shape[1]
+        pos = start.long()[:, None] + self._rows[None, :P]  # (B, P)
+        valid = self._rows[None, :P] < n_valid.long()[:, None]
+        x = p["tok_embed"]["kernel"][toks.long()] + p["pos_embed"]["value"][pos.clamp(0, S - 1)]
+        page = (pos // BS).clamp(0, MB - 1)
+        blk = torch.where(valid, bt.long().gather(1, page), 0)
+        off = torch.where(valid, pos % BS, 0)
+        x = self._layers(x, blk, off, start, bt)
+        # layer norm is per row, so pick each lane's last valid row first
+        row = x[self._lane, (n_valid.long() - 1).clamp(0, P - 1)]
+        return self._head(row)
+
+    @staticmethod
+    def _now() -> float:
+        return time.perf_counter()
+
+    # --- the serve loop ----------------------------------------------------
+    def run(self, requests: Optional[Sequence[Request]] = None) -> ServeReport:
+        """Serve ``requests`` (plus anything already submitted) until the
+        queue drains.  Each request is submitted once its open-loop
+        ``arrival_s`` offset from the run's start has passed."""
+        pending = sorted(requests or (), key=lambda r: (r.arrival_s, r.id))
+        t0 = self._now()
+        syncs0 = self.host_syncs
+        self.windows = self.decode_steps = self.prefill_chunks = 0
+        self.prefill_dispatches = 0
+        self.peak_active = 0
+        self._occ_sum = 0.0
+        fin0 = len(self.sched.finished)
+        rej0 = len(self.sched.rejected)
+        exp0 = self.sched.expired
+        for r in self.sched.queue:  # queued before run(): arrive at t0
+            if r.arrival_abs_s is None:
+                r.arrival_abs_s = t0
+                r.t_submit = 0.0
+        n_sub = 0
+        while True:
+            now = self._now() - t0
+            while n_sub < len(pending) and pending[n_sub].arrival_s <= now:
+                r = pending[n_sub]
+                self.sched.submit(r, now=now)
+                r.arrival_abs_s = t0 + r.arrival_s
+                n_sub += 1
+            self.sched.admit(now=now)
+            if self.sched.idle:
+                if n_sub >= len(pending):
+                    break
+                dt_next = pending[n_sub].arrival_s - (self._now() - t0)
+                if dt_next > 0:
+                    time.sleep(min(dt_next, 0.05))
+                continue
+            self._window()
+        return self._report(
+            self._now() - t0, self.host_syncs - syncs0, self.sched.finished[fin0:],
+            len(self.sched.rejected) - rej0, self.sched.expired - exp0,
+        )
+
+    def _window(self) -> None:
+        t_win = self._now()
+        B, MB = self.slots, self.kv.max_blocks_per_seq
+        fin_before = len(self.sched.finished)
+        self.peak_active = max(self.peak_active, len(self.sched.active))
+
+        # 1) prefill: ONE batched dispatch covers every mid-prefill slot
+        prefill_done: List[Any] = []  # (req, slot) whose prompt completes
+        chunks = []  # (slot, lo, hi)
+        for slot in self.sched.prefill_slots():
+            req = self.sched.active[slot]
+            lo = req.prefill_pos
+            chunks.append((slot, lo, min(lo + self.prefill_chunk, req.prompt_len)))
+        pf_nxt = None
+        if chunks:
+            toks, start, n_valid, bt_pf = self._pf_toks, self._pf_start, self._pf_n, self._pf_bt
+            for a in (toks, start, n_valid, bt_pf):
+                a.fill(0)
+            for slot, lo, hi in chunks:
+                req = self.sched.active[slot]
+                toks[slot, : hi - lo] = req.prompt[lo:hi]
+                start[slot] = lo
+                n_valid[slot] = hi - lo
+                bt_pf[slot] = self.kv.table_row(slot)
+            pf_nxt, _ = self._prefill(*self._to_device("prefill", toks, start, n_valid, bt_pf))
+            self.prefill_chunks += len(chunks)
+            self.prefill_dispatches += 1
+            for slot, lo, hi in chunks:
+                req = self.sched.active[slot]
+                req.prefill_pos = hi
+                # register fully written prompt blocks now, so a request
+                # admitted next window can re-attach them
+                self.kv.commit_prefix(req.slot, req.prompt, req.prefill_pos)
+                if req.prefill_pos >= req.prompt_len:
+                    prefill_done.append((req, slot))
+
+        # 2) decode: chain next tokens on the device for an adaptive window
+        dec_slots = self.sched.decode_slots()
+        buffered: List[torch.Tensor] = []
+        steps = 0
+        if dec_slots:
+            remaining = [
+                self.sched.active[s].max_new_tokens - self.sched.active[s].done_tokens
+                for s in dec_slots
+            ]
+            cur = np.zeros((B,), np.int32)
+            pos = np.zeros((B,), np.int32)
+            inc = np.zeros((B,), np.int32)  # decode lanes advance, idle lanes stay
+            bt = np.zeros((B, MB), np.int32)
+            for s in dec_slots:
+                r = self.sched.active[s]
+                cur[s] = r.tokens[-1]
+                pos[s] = r.prompt_len + r.done_tokens - 1
+                inc[s] = 1
+                bt[s] = self.kv.tables[s]
+            cur_d, pos_d, inc_d, bt_d = self._to_device("decode", cur, pos, inc, bt)
+            steps = max(1, min(self.sync_every, min(remaining)))
+            for _ in range(steps):
+                nxt, _ = self._decode(cur_d, pos_d, bt_d)
+                buffered.append(nxt)
+                cur_d = nxt  # device-to-device chain: no host fetch
+                pos_d = pos_d + inc_d
+            self.decode_steps += steps
+
+        # 3) flush: the window's ONE device-to-host copy
+        t_sync = self._now()
+        parts = buffered + ([pf_nxt] if chunks else [])
+        host = torch.stack(parts).cpu().numpy()
+        stall = self._now() - t_sync
+        self.host_syncs += 1
+        flushed = 0
+        for ki in range(len(buffered)):
+            for s in dec_slots:
+                req = self.sched.active.get(s)
+                if req is None or req.state is not RequestState.DECODE:
+                    continue  # finished earlier in this flush
+                tok = int(host[ki][s])
+                req.tokens.append(tok)
+                flushed += 1
+                self._finish_if_done(req, tok)
+        for req, slot in prefill_done:
+            tok = int(host[-1][slot])
+            req.state = RequestState.DECODE
+            req.tokens.append(tok)
+            flushed += 1
+            req.t_first_token = self._now()
+            self._finish_if_done(req, tok)
+
+        self.windows += 1
+        self._occ_sum += self.sched.occupancy
+        if self.metrics.enabled:
+            fin = [
+                {"id": r.id, "tokens": r.done_tokens, "reason": r.finish_reason,
+                 "tenant": r.tenant, "tier": r.tier, "preempted": r.preemptions,
+                 **r.latency_ms()}
+                for r in self.sched.finished[fin_before:]
+            ]
+            serve_m = {
+                "queue_depth": self.sched.queue_depth,
+                "occupancy": self.sched.occupancy,
+                "decode_steps": steps,
+                "prefill_chunks": len(chunks),
+                "active": len(self.sched.active),
+                "finished": fin,
+                "rejected_total": len(self.sched.rejected),
+                "expired_total": self.sched.expired,
+                "prefix_hit_rate": self.kv.prefix_hit_rate,
+                "cached_blocks": self.kv.cached_blocks,
+                "preemptions_total": self.sched.preemptions,
+                "attn_kernel": self.attn_kernel,
+                "prefill_attn_kernel": self.attn_kernel,
+                "prefill_dispatches": 1 if chunks else 0,
+                "kv_dtype": self.kv_dtype,
+                "kv_bytes_per_token": self.kv.bytes_per_token,
+                "device": str(self.device),
+            }
+            self.metrics.append(step_record(
+                step=self.windows - 1, t=time.time(),
+                step_wall_s=self._now() - t_win, host_stall_s=stall,
+                tokens=flushed, samples=len(dec_slots),
+                metrics={"serve": serve_m},
+            ))
+
+    def _finish_if_done(self, req: Request, tok: int) -> None:
+        if req.eos_id is not None and tok == req.eos_id:
+            self.sched.finish(req, self._now(), "eos")
+        elif req.done_tokens >= req.max_new_tokens:
+            self.sched.finish(req, self._now(), "length")
+
+    # --- report -------------------------------------------------------------
+    def _report(self, wall: float, host_syncs: int, fin: List[Request],
+                rejected: int, expired: int) -> ServeReport:
+        lat = [r.latency_ms() for r in fin]
+        new_tokens = sum(r.done_tokens for r in fin)
+        per_tier: Dict[str, Dict[str, Any]] = {}
+        for tier in sorted({r.tier for r in fin}):
+            tl = [r.latency_ms() for r in fin if r.tier == tier]
+            per_tier[tier] = {
+                "finished": len(tl),
+                "preemptions": 0,
+                "ttft_p50_ms": _pct([d["ttft_ms"] for d in tl], 50),
+                "ttft_p99_ms": _pct([d["ttft_ms"] for d in tl], 99),
+                "tpot_p99_ms": _pct([d["tpot_ms"] for d in tl], 99),
+            }
+        per_tenant: Dict[str, Dict[str, Any]] = {}
+        for tenant, d in sorted(self.sched.tenant_summary().items()):
+            ttfts = d.pop("ttft_ms")
+            d["ttft_p50_ms"] = _pct(ttfts, 50)
+            d["ttft_p99_ms"] = _pct(ttfts, 99)
+            per_tenant[tenant] = d
+        rep = ServeReport(
+            wall_s=wall,
+            new_tokens=new_tokens,
+            tok_s=new_tokens / wall if wall > 0 else 0.0,
+            requests_finished=len(fin),
+            requests_rejected=rejected,
+            ttft_p50_ms=_pct([d["ttft_ms"] for d in lat], 50),
+            ttft_p99_ms=_pct([d["ttft_ms"] for d in lat], 99),
+            tpot_p50_ms=_pct([d["tpot_ms"] for d in lat], 50),
+            tpot_p99_ms=_pct([d["tpot_ms"] for d in lat], 99),
+            occupancy_mean=self._occ_sum / self.windows if self.windows else 0.0,
+            windows=self.windows,
+            decode_steps=self.decode_steps,
+            prefill_chunks=self.prefill_chunks,
+            host_syncs=host_syncs,
+            per_request=[
+                {"id": r.id, "prompt_len": r.prompt_len, "tokens": list(r.tokens),
+                 "reason": r.finish_reason, "tenant": r.tenant, "tier": r.tier,
+                 "shared_prefix_pos": r.shared_prefix_pos, **r.latency_ms()}
+                for r in fin
+            ],
+            prefix_hit_rate=self.kv.prefix_hit_rate,
+            per_tier=per_tier,
+            per_tenant=per_tenant,
+            peak_active=self.peak_active,
+            requests_expired=expired,
+            prefill_dispatches=self.prefill_dispatches,
+            prefill_attn_kernel=self.attn_kernel,
+        )
+        self.metrics.close()
+        return rep

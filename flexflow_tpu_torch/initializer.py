@@ -1,11 +1,12 @@
-"""Weight initializers (the subset the GPT decoder uses).
+"""Weight initializers (the subset the GPT decoder and the encoder use).
 
 Counterpart of ``flexflow_tpu/initializer.py``: the same classes and
 fan rules, drawing from an explicit :class:`torch.Generator` in place
 of a ``jax.random`` key.  The two frameworks give different numbers for
 the same seed, so parity tests carry weights across
-(:func:`flexflow_tpu_torch.models.transformer.load_jax_params`) instead
-of redrawing them.
+(:func:`flexflow_tpu_torch.models.transformer.load_jax_params`,
+:meth:`flexflow_tpu_torch.model.FFModel.set_weights`) instead of
+redrawing them.
 """
 
 from __future__ import annotations
@@ -21,6 +22,8 @@ __all__ = [
     "ZeroInitializer",
     "OnesInitializer",
     "NormInitializer",
+    "default_kernel_initializer",
+    "default_bias_initializer",
 ]
 
 
@@ -66,3 +69,11 @@ class NormInitializer(Initializer):
     def __call__(self, gen, shape, dtype):
         out = torch.empty(shape, dtype=dtype, device=gen.device)
         return out.normal_(self.mean, self.stddev, generator=gen)
+
+
+def default_kernel_initializer() -> Initializer:
+    return GlorotUniform()
+
+
+def default_bias_initializer() -> Initializer:
+    return ZeroInitializer()

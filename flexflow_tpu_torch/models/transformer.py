@@ -1,6 +1,13 @@
-"""GPT decoder weights as an ``nn.Module``, and the carry from JAX.
+"""The BERT-style encoder builder, GPT decoder weights as an
+``nn.Module``, and the carry from JAX.
 
-Counterpart of ``flexflow_tpu/models/transformer.py`` ``gpt_decoder``:
+Counterpart of ``flexflow_tpu/models/transformer.py``.
+:func:`transformer_encoder` builds the encoder into an ``FFModel`` with
+the JAX builder's layer names and weight shapes (``enc{i}_attn``,
+``enc{i}_ff0`` ...), so ``FFModel.set_weights(jax_model.get_weights())``
+carries a JAX encoder over.
+
+For the decoder (``gpt_decoder``):
 :class:`GPTDecoder` holds exactly the parameters that ``gpt_decoder`` +
 ``FFModel.compile`` create, under the same names and shapes
 (``tok_embed.kernel``, ``pos_embed.value``, ``dec{i}_ln0.scale``,
@@ -10,31 +17,105 @@ the JAX package's ``model.executor.params`` leaf for leaf with no
 transposes.
 
 The module is the parameter container the serve programs
-(:mod:`flexflow_tpu_torch.serve.engine`) read; the full-sequence
-training forward comes with the training slice (ROADMAP.md).
+(:mod:`flexflow_tpu_torch.serve.engine`) read.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping, Union
+from typing import Any, Dict, Mapping, Optional, Union
 
 import numpy as np
 import torch
 from torch import nn
 
 from flexflow_tpu_torch.device import DEFAULT_DEVICE, resolve_device
+from flexflow_tpu_torch.fftype import ActiMode
 from flexflow_tpu_torch.initializer import (
     GlorotUniform,
     NormInitializer,
     OnesInitializer,
     ZeroInitializer,
 )
+from flexflow_tpu_torch.model import FFModel
 from flexflow_tpu_torch.models.gpt_decode import GPTSpec
+from flexflow_tpu_torch.tensor import Tensor
 
-__all__ = ["GPT2_SMALL", "GPT2_MEDIUM", "GPTDecoder", "load_jax_params"]
+__all__ = [
+    "BERT_BASE", "BERT_LARGE", "encoder_layer", "transformer_encoder",
+    "GPT2_SMALL", "GPT2_MEDIUM", "GPTDecoder", "load_jax_params",
+]
 
+BERT_BASE = dict(hidden=768, heads=12, ff_dim=3072, num_layers=12)
+BERT_LARGE = dict(hidden=1024, heads=16, ff_dim=4096, num_layers=24)
 GPT2_SMALL = dict(hidden=768, heads=12, ff_dim=3072, num_layers=12)
 GPT2_MEDIUM = dict(hidden=1024, heads=16, ff_dim=4096, num_layers=24)
+
+
+def encoder_layer(
+    model: FFModel,
+    t: Tensor,
+    hidden: int,
+    heads: int,
+    ff_dim: int,
+    dropout: float = 0.0,
+    causal: bool = False,
+    use_flash: bool = True,
+    name: str = "enc",
+) -> Tensor:
+    """Post-LN encoder block: attention -> add & norm -> FFN (GELU) ->
+    add & norm."""
+    attn = model.multihead_attention(
+        t, t, t, hidden, heads, dropout=dropout, causal=causal,
+        use_flash=use_flash, name=f"{name}_attn",
+    )
+    t = model.add(attn, t, name=f"{name}_res0")
+    t = model.layer_norm(t, axes=[-1], name=f"{name}_ln0")
+    ff = model.dense(t, ff_dim, ActiMode.GELU, name=f"{name}_ff0")
+    ff = model.dense(ff, hidden, name=f"{name}_ff1")
+    if dropout > 0.0:
+        ff = model.dropout(ff, dropout, name=f"{name}_drop")
+    t = model.add(ff, t, name=f"{name}_res1")
+    return model.layer_norm(t, axes=[-1], name=f"{name}_ln1")
+
+
+def transformer_encoder(
+    model: FFModel,
+    batch: int,
+    seq: int,
+    hidden: int = 768,
+    heads: int = 12,
+    ff_dim: int = 3072,
+    num_layers: int = 12,
+    vocab: int = 32000,
+    num_classes: Optional[int] = None,
+    dropout: float = 0.0,
+    causal: bool = False,
+    use_flash: bool = True,
+    raw_input: bool = False,
+) -> Tensor:
+    """Build the encoder into ``model`` from a (batch, seq, hidden) input
+    ``embeddings``; returns the softmax output of the pooled classifier
+    (``num_classes``) or of the LM head over ``vocab``, flattened to
+    (batch * seq, vocab).  The token-embedding front end
+    (``raw_input=False``) needs ``ops/embedding.py``, which is not
+    ported, and raises."""
+    if not raw_input:
+        raise NotImplementedError(
+            "transformer_encoder(raw_input=False) needs the token embedding "
+            "(ops/embedding.py), which is not ported; pass raw_input=True")
+    t = model.create_tensor((batch, seq, hidden), name="embeddings")
+    for i in range(num_layers):
+        t = encoder_layer(
+            model, t, hidden, heads, ff_dim, dropout, causal, use_flash, name=f"enc{i}"
+        )
+    if num_classes is not None:
+        # pooled classification head (mean over the sequence)
+        t = model.reduce_mean(t, axes=[1], name="pool")
+        t = model.dense(t, num_classes, name="cls_head")
+        return model.softmax(t, name="cls_softmax")
+    t = model.dense(t, vocab, name="lm_head")
+    t = model.reshape(t, (batch * seq, vocab), name="lm_flatten")
+    return model.softmax(t, name="lm_softmax")
 
 
 class _Leaves(nn.Module):

@@ -8,8 +8,9 @@ package imports where there is no ``nvcc`` and no GPU.
 
 Libraries go to ``_build/`` beside this file (listed in ``.gitignore``)
 under a name that carries a hash of the sources and flags, so an edited
-source is rebuilt and an unchanged one is reused.  A failed build raises
-with ``nvcc``'s stderr.
+source is rebuilt and an unchanged one is reused.  The sources build in
+parallel, one ``nvcc`` each.  A failed build raises with ``nvcc``'s
+stderr.
 """
 
 from __future__ import annotations
@@ -20,11 +21,12 @@ import os
 import shutil
 import subprocess
 import threading
+import time
 from pathlib import Path
 from typing import Dict, Iterable, Optional
 
 __all__ = [
-    "CSRC_DIR", "BUILD_DIR", "NVCC_FLAGS", "find_nvcc", "sources", "library_path", "build", "load",
+    "CSRC_DIR", "BUILD_DIR", "NVCC_FLAGS", "BUILD_SECONDS", "find_nvcc", "sources", "library_path", "build", "load",
 ]
 
 CSRC_DIR = Path(__file__).resolve().parent / "csrc"
@@ -33,6 +35,10 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
 )
+
+# seconds each source's nvcc took, by kernel name, for the builds this
+# process ran
+BUILD_SECONDS: Dict[str, float] = {}
 
 _lock = threading.Lock()
 _loaded: Dict[str, ctypes.CDLL] = {}
@@ -75,7 +81,7 @@ def build(
     nvcc: Optional[str] = None,
 ) -> Dict[str, Path]:
     """Compile every named kernel (default: all of ``csrc/*.cu``) that has
-    no up-to-date library, one ``nvcc`` per source.  Returns
+    no up-to-date library, one ``nvcc`` per source, all run at once.  Returns
     ``{name: library path}``; raises ``RuntimeError`` with ``nvcc``'s
     stderr when a build fails."""
     names = list(sources() if names is None else names)
@@ -86,19 +92,47 @@ def build(
         return out
     nvcc = nvcc or find_nvcc()
     build_dir.mkdir(parents=True, exist_ok=True)
-    for n in todo:
-        tmp = out[n].with_name(f"{out[n].name}.{os.getpid()}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / f"{n}.cu")]
-        try:
-            proc = subprocess.run(cmd, capture_output=True, text=True)
-        except OSError as e:
-            raise RuntimeError(f"cannot run {nvcc!r} to build {n}.cu: {e}") from e
-        if proc.returncode != 0:
-            tmp.unlink(missing_ok=True)
-            raise RuntimeError(
-                f"nvcc failed building {n}.cu (exit {proc.returncode}):\n{proc.stderr}"
-            )
-        os.replace(tmp, out[n])  # atomic: a reader never sees half a library
+    # one nvcc per source, all started together; stderr goes to a file
+    # beside the library so a long error listing cannot block a pipe
+    procs = {}
+    failed = []
+    try:
+        for n in todo:
+            tmp = out[n].with_name(f"{out[n].name}.{os.getpid()}.tmp")
+            log = tmp.with_suffix(".log")
+            cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / f"{n}.cu")]
+            with open(log, "w") as err:
+                try:
+                    proc = subprocess.Popen(cmd, stdout=subprocess.DEVNULL, stderr=err)
+                except OSError as e:
+                    log.unlink(missing_ok=True)
+                    raise RuntimeError(f"cannot run {nvcc!r} to build {n}.cu: {e}") from e
+            procs[n] = (tmp, log, proc, time.perf_counter())
+        running = dict(procs)
+        while running:
+            for n, (tmp, log, proc, t0) in list(running.items()):
+                if proc.poll() is None:
+                    continue
+                BUILD_SECONDS[n] = time.perf_counter() - t0
+                del running[n]
+                if proc.returncode != 0:
+                    tmp.unlink(missing_ok=True)
+                    failed.append(f"nvcc failed building {n}.cu (exit {proc.returncode}):\n"
+                                  f"{log.read_text(errors='replace')}")
+                else:
+                    os.replace(tmp, out[n])  # atomic: a reader never sees half a library
+                log.unlink(missing_ok=True)
+            if running:
+                time.sleep(0.05)
+    finally:
+        for tmp, log, proc, _ in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+                tmp.unlink(missing_ok=True)
+                log.unlink(missing_ok=True)
+    if failed:
+        raise RuntimeError("\n".join(failed))
     return out
 
 

@@ -1,0 +1,1058 @@
+// Flash attention, forward and backward, for sm_90a.
+//
+// Replaces the four TPU kernels of flexflow_tpu/ops/pallas/flash_attention.py:
+//   flash_fwd      <- _fwd_kernel_onepass (_flash_fwd_onepass) and _fwd_kernel
+//                     (_flash_fwd): one kernel for both, a one-pass row is a
+//                     K/V loop that runs one tile;
+//   flash_bwd_dq   <- _dq_kernel  (_flash_bwd, first pallas_call);
+//   flash_bwd_dkv  <- _dkv_kernel (_flash_bwd, second pallas_call).
+// All tensors are (BH, S, D) row-major, bh = b * H + h; lse and delta are
+// float32 (BH, Sq).  They compute, with s = (q . k) * scale, the end-aligned
+// causal mask visible = q_pos + (Sk - Sq) >= k_pos (every key visible when
+// not causal), and masked scores set to -1e30 as the JAX kernels do:
+//
+//   forward:  o = softmax(s) @ v with dropout on the probabilities after the
+//             row sum; lse = m + log(max(l, 1e-30)).  A row that sees no key
+//             outputs 0 and saves lse = -1e30 + log(1e-30), which the
+//             backward kernels rely on (p is zeroed by the mask, not by lse).
+//   dq:       p = exp(s - lse); dp = do . v (dropout: kept / keep, else 0);
+//             ds = p * (dp - delta); dq = scale * ds @ k.
+//   dk, dv:   dv = p_eff^T @ do; dk = scale * ds^T @ q, over the q tiles that
+//             can see the k tile.
+//
+// Dropout is the JAX package's counter hash _uniform01(seed, bh, q_pos,
+// k_pos) (murmur3-style uint32 finalizer), bit for bit: forward and backward
+// rebuild the same mask from the seed and no mask is stored.
+//
+// Two sets of kernels share that contract:
+//
+// * float32 inputs: the arithmetic runs as float32 FMAs on the CUDA cores
+//   (the tensor cores' float32 path is TF32, which would not hold float32
+//   parity).  Each block of 256 threads stages a 64-row Q tile and 64-row
+//   K/V tiles in shared memory, widened with a padded row stride; each
+//   thread keeps a 4 x 4 register tile of scores and a 4 x D/16 tile of
+//   the output, so one shared-memory load feeds several FMAs.
+// * bfloat16 inputs: mma.sync.m16n8k16 on the tensor cores (bfloat16 in,
+//   float32 accumulate), one warp per 16 rows, with the score and
+//   probability tiles kept in registers (see the section below).  The
+//   casts are the JAX kernels': matmul inputs stay bfloat16, products
+//   accumulate in float32, p (and ds) round to bfloat16 before their
+//   product, outputs round once.
+//
+// What bounds them on this card: operations.  At BERT-Base (S 512, D 64)
+// the forward does 4*S*D = 131k flops per row against 4*D*(2 or 4) bytes of
+// q/o traffic, far above the H100's balance point; the backward kernels
+// recompute the scores and do more.  The (Sq, Sk) score matrix never
+// reaches device memory.  Neither set pipelines its tile loads (load, sync,
+// compute); TMA, wgmma and warp specialisation are later work.
+//
+// Plain C interface (built by nvcc into a shared library, loaded with ctypes);
+// each entry point returns the cudaGetLastError() code after its launch.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+#include <cstdint>
+#include <type_traits>
+
+namespace {
+
+constexpr int kTile = 64;      // rows of a Q tile and of a K/V tile
+constexpr int kThreads = 256;  // 16 x 16 threads; thread (ty, tx)
+constexpr int kRows = 4;       // rows per thread: ty * 4 .. ty * 4 + 3
+constexpr int kCols = 4;       // score columns per thread: tx + 16 * j
+constexpr int kPLd = kTile + 1;
+constexpr float kNegInf = -1e30f;
+
+__device__ __forceinline__ float uniform01(uint32_t seed, uint32_t bh, uint32_t q_pos,
+                                           uint32_t k_pos) {
+  uint32_t h = q_pos * 0x9E3779B1u + k_pos * 0x85EBCA77u + seed + bh * 0xC2B2AE35u;
+  h ^= h >> 16;
+  h *= 0x7FEB352Du;
+  h ^= h >> 15;
+  h *= 0x846CA68Bu;
+  h ^= h >> 16;
+  return static_cast<float>(h >> 8) * (1.0f / 16777216.0f);
+}
+
+// reductions over the 16 threads (tx) that share a row group; they are 16
+// consecutive lanes of one warp
+__device__ __forceinline__ float row_max(float v) {
+#pragma unroll
+  for (int o = 8; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+__device__ __forceinline__ float row_sum(float v) {
+#pragma unroll
+  for (int o = 8; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+// rows [r0, r0 + kTile) of a (S, D) matrix into a float32 tile with row
+// stride D + 1 (the pad spreads the column walks over the banks)
+template <int D>
+__device__ __forceinline__ void load_tile(float* dst, const float* __restrict__ src, int r0) {
+  const float* base = src + static_cast<size_t>(r0) * D;
+  for (int idx = threadIdx.x; idx < kTile * D; idx += kThreads) {
+    const int r = idx / D, d = idx % D;
+    dst[r * (D + 1) + d] = base[idx];
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreads)
+flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v, float* __restrict__ out,
+                 float* __restrict__ lse, int sq, int sk, int causal, float scale, float rate,
+                 float keep, uint32_t seed) {
+  constexpr int LD = D + 1;
+  constexpr int kAcc = D / 16;
+  extern __shared__ float smem[];
+  float* qs = smem;              // [kTile][LD]
+  float* ks = qs + kTile * LD;   // [kTile][LD]
+  float* vs = ks + kTile * LD;   // [kTile][LD]
+  float* ps = vs + kTile * LD;   // [kTile][kPLd]
+
+  const int bh = blockIdx.y;
+  const int q0 = blockIdx.x * kTile;
+  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
+  const int off = sk - sq;
+  const float* qb = q + static_cast<size_t>(bh) * sq * D;
+  const float* kb = k + static_cast<size_t>(bh) * sk * D;
+  const float* vb = v + static_cast<size_t>(bh) * sk * D;
+
+  // keys past the last row's diagonal are invisible to the whole tile
+  int k_end = sk;
+  if (causal) k_end = min(sk, max(0, q0 + kTile + off));
+
+  load_tile<D>(qs, qb, q0);
+
+  float m[kRows], l[kRows], acc[kRows][kAcc];
+#pragma unroll
+  for (int i = 0; i < kRows; ++i) {
+    m[i] = kNegInf;
+    l[i] = 0.f;
+#pragma unroll
+    for (int c = 0; c < kAcc; ++c) acc[i][c] = 0.f;
+  }
+
+  for (int k0 = 0; k0 < k_end; k0 += kTile) {
+    __syncthreads();  // the previous tile is consumed (and qs is written)
+    load_tile<D>(ks, kb, k0);
+    load_tile<D>(vs, vb, k0);
+    __syncthreads();
+
+    float s[kRows][kCols];
+#pragma unroll
+    for (int i = 0; i < kRows; ++i)
+#pragma unroll
+      for (int j = 0; j < kCols; ++j) s[i][j] = 0.f;
+#pragma unroll 8
+    for (int d = 0; d < D; ++d) {
+      float a[kRows], b[kCols];
+#pragma unroll
+      for (int i = 0; i < kRows; ++i) a[i] = qs[(ty * kRows + i) * LD + d];
+#pragma unroll
+      for (int j = 0; j < kCols; ++j) b[j] = ks[(tx + 16 * j) * LD + d];
+#pragma unroll
+      for (int i = 0; i < kRows; ++i)
+#pragma unroll
+        for (int j = 0; j < kCols; ++j) s[i][j] = fmaf(a[i], b[j], s[i][j]);
+    }
+
+#pragma unroll
+    for (int i = 0; i < kRows; ++i) {
+      const int r = ty * kRows + i;
+      const int q_pos = q0 + r;
+      bool vis[kCols];
+      float mx = kNegInf;
+#pragma unroll
+      for (int j = 0; j < kCols; ++j) {
+        const int k_pos = k0 + tx + 16 * j;
+        vis[j] = !causal || q_pos + off >= k_pos;
+        s[i][j] = vis[j] ? s[i][j] * scale : kNegInf;
+        mx = fmaxf(mx, s[i][j]);
+      }
+      const float m_new = fmaxf(m[i], row_max(mx));
+      const float alpha = expf(m[i] - m_new);
+      float psum = 0.f;
+#pragma unroll
+      for (int j = 0; j < kCols; ++j) {
+        const int k_pos = k0 + tx + 16 * j;
+        float p = vis[j] ? expf(s[i][j] - m_new) : 0.f;
+        psum += p;
+        if (rate > 0.f) {
+          const float u = uniform01(seed, bh, q_pos, k_pos);
+          p = u >= rate ? p / keep : 0.f;
+        }
+        ps[r * kPLd + tx + 16 * j] = p;
+      }
+      l[i] = l[i] * alpha + row_sum(psum);
+      m[i] = m_new;
+#pragma unroll
+      for (int c = 0; c < kAcc; ++c) acc[i][c] *= alpha;
+    }
+    __syncthreads();
+
+#pragma unroll 4
+    for (int kk = 0; kk < kTile; ++kk) {
+      float a[kRows], b[kAcc];
+#pragma unroll
+      for (int i = 0; i < kRows; ++i) a[i] = ps[(ty * kRows + i) * kPLd + kk];
+#pragma unroll
+      for (int c = 0; c < kAcc; ++c) b[c] = vs[kk * LD + tx + 16 * c];
+#pragma unroll
+      for (int i = 0; i < kRows; ++i)
+#pragma unroll
+        for (int c = 0; c < kAcc; ++c) acc[i][c] = fmaf(a[i], b[c], acc[i][c]);
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < kRows; ++i) {
+    const int q_pos = q0 + ty * kRows + i;
+    const float l_safe = fmaxf(l[i], 1e-30f);
+    float* o = out + (static_cast<size_t>(bh) * sq + q_pos) * D;
+#pragma unroll
+    for (int c = 0; c < kAcc; ++c) o[tx + 16 * c] = acc[i][c] / l_safe;
+    if (tx == 0) lse[static_cast<size_t>(bh) * sq + q_pos] = m[i] + logf(l_safe);
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreads)
+flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                    const float* __restrict__ v,
+                    const float* __restrict__ dout, const float* __restrict__ lse,
+                    const float* __restrict__ delta, float* __restrict__ dq, int sq, int sk,
+                    int causal, float scale, float rate, float keep, uint32_t seed) {
+  constexpr int LD = D + 1;
+  constexpr int kAcc = D / 16;
+  extern __shared__ float smem[];
+  float* qs = smem;                // [kTile][LD]
+  float* dos = qs + kTile * LD;    // [kTile][LD]
+  float* ks = dos + kTile * LD;    // [kTile][LD]
+  float* vs = ks + kTile * LD;     // [kTile][LD]
+  float* dss = vs + kTile * LD;    // [kTile][kPLd]
+
+  const int bh = blockIdx.y;
+  const int q0 = blockIdx.x * kTile;
+  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
+  const int off = sk - sq;
+  const float* kb = k + static_cast<size_t>(bh) * sk * D;
+  const float* vb = v + static_cast<size_t>(bh) * sk * D;
+
+  int k_end = sk;
+  if (causal) k_end = min(sk, max(0, q0 + kTile + off));
+
+  load_tile<D>(qs, q + static_cast<size_t>(bh) * sq * D, q0);
+  load_tile<D>(dos, dout + static_cast<size_t>(bh) * sq * D, q0);
+
+  float row_lse[kRows], row_delta[kRows], acc[kRows][kAcc];
+#pragma unroll
+  for (int i = 0; i < kRows; ++i) {
+    const size_t idx = static_cast<size_t>(bh) * sq + q0 + ty * kRows + i;
+    row_lse[i] = lse[idx];
+    row_delta[i] = delta[idx];
+#pragma unroll
+    for (int c = 0; c < kAcc; ++c) acc[i][c] = 0.f;
+  }
+
+  for (int k0 = 0; k0 < k_end; k0 += kTile) {
+    __syncthreads();
+    load_tile<D>(ks, kb, k0);
+    load_tile<D>(vs, vb, k0);
+    __syncthreads();
+
+    float s[kRows][kCols], dp[kRows][kCols];
+#pragma unroll
+    for (int i = 0; i < kRows; ++i)
+#pragma unroll
+      for (int j = 0; j < kCols; ++j) s[i][j] = dp[i][j] = 0.f;
+#pragma unroll 4
+    for (int d = 0; d < D; ++d) {
+      float a[kRows], g[kRows], b[kCols], w[kCols];
+#pragma unroll
+      for (int i = 0; i < kRows; ++i) {
+        a[i] = qs[(ty * kRows + i) * LD + d];
+        g[i] = dos[(ty * kRows + i) * LD + d];
+      }
+#pragma unroll
+      for (int j = 0; j < kCols; ++j) {
+        b[j] = ks[(tx + 16 * j) * LD + d];
+        w[j] = vs[(tx + 16 * j) * LD + d];
+      }
+#pragma unroll
+      for (int i = 0; i < kRows; ++i)
+#pragma unroll
+        for (int j = 0; j < kCols; ++j) {
+          s[i][j] = fmaf(a[i], b[j], s[i][j]);
+          dp[i][j] = fmaf(g[i], w[j], dp[i][j]);
+        }
+    }
+
+#pragma unroll
+    for (int i = 0; i < kRows; ++i) {
+      const int r = ty * kRows + i;
+      const int q_pos = q0 + r;
+#pragma unroll
+      for (int j = 0; j < kCols; ++j) {
+        const int k_pos = k0 + tx + 16 * j;
+        const bool vis = !causal || q_pos + off >= k_pos;
+        // a row with no visible key saved lse ~ -1e30, so exp(s - lse) of a
+        // masked score does not vanish: the mask zeroes it
+        const float p = vis ? expf(s[i][j] * scale - row_lse[i]) : 0.f;
+        float g = dp[i][j];
+        if (rate > 0.f) {
+          const float u = uniform01(seed, bh, q_pos, k_pos);
+          g = u >= rate ? g / keep : 0.f;
+        }
+        dss[r * kPLd + tx + 16 * j] = p * (g - row_delta[i]);
+      }
+    }
+    __syncthreads();
+
+#pragma unroll 4
+    for (int kk = 0; kk < kTile; ++kk) {
+      float a[kRows], b[kAcc];
+#pragma unroll
+      for (int i = 0; i < kRows; ++i) a[i] = dss[(ty * kRows + i) * kPLd + kk];
+#pragma unroll
+      for (int c = 0; c < kAcc; ++c) b[c] = ks[kk * LD + tx + 16 * c];
+#pragma unroll
+      for (int i = 0; i < kRows; ++i)
+#pragma unroll
+        for (int c = 0; c < kAcc; ++c) acc[i][c] = fmaf(a[i], b[c], acc[i][c]);
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < kRows; ++i) {
+    float* o = dq + (static_cast<size_t>(bh) * sq + q0 + ty * kRows + i) * D;
+#pragma unroll
+    for (int c = 0; c < kAcc; ++c) o[tx + 16 * c] = acc[i][c] * scale;
+  }
+}
+
+// One block per (k tile, bh).  Thread (ty, tx) owns keys ty*4 .. ty*4+3 of
+// the tile and, within a q tile, query columns tx + 16 * j: it builds the
+// transposed score tile s^T directly.
+template <int D>
+__global__ void __launch_bounds__(kThreads)
+flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ v,
+                     const float* __restrict__ dout, const float* __restrict__ lse,
+                     const float* __restrict__ delta, float* __restrict__ dk,
+                     float* __restrict__ dv,
+                     int sq, int sk, int causal, float scale, float rate, float keep,
+                     uint32_t seed) {
+  constexpr int LD = D + 1;
+  constexpr int kAcc = D / 16;
+  extern __shared__ float smem[];
+  float* ks = smem;                // [kTile][LD]
+  float* vs = ks + kTile * LD;     // [kTile][LD]
+  float* qs = vs + kTile * LD;     // [kTile][LD]
+  float* dos = qs + kTile * LD;    // [kTile][LD]
+  float* pts = dos + kTile * LD;   // [kTile keys][kPLd]: p_eff^T
+  float* dst = pts + kTile * kPLd; // [kTile keys][kPLd]: ds^T
+  float* lse_s = dst + kTile * kPLd;  // [kTile]
+  float* delta_s = lse_s + kTile;     // [kTile]
+
+  const int bh = blockIdx.y;
+  const int k0 = blockIdx.x * kTile;
+  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
+  const int off = sk - sq;
+  const float* qb = q + static_cast<size_t>(bh) * sq * D;
+  const float* db = dout + static_cast<size_t>(bh) * sq * D;
+
+  // the first q tile whose last row can see this tile's first key
+  int q_begin = 0;
+  if (causal) q_begin = max(0, (k0 - off) / kTile * kTile);
+
+  load_tile<D>(ks, k + static_cast<size_t>(bh) * sk * D, k0);
+  load_tile<D>(vs, v + static_cast<size_t>(bh) * sk * D, k0);
+
+  float dk_acc[kRows][kAcc], dv_acc[kRows][kAcc];
+#pragma unroll
+  for (int i = 0; i < kRows; ++i)
+#pragma unroll
+    for (int c = 0; c < kAcc; ++c) dk_acc[i][c] = dv_acc[i][c] = 0.f;
+
+  for (int q0 = q_begin; q0 < sq; q0 += kTile) {
+    __syncthreads();
+    load_tile<D>(qs, qb, q0);
+    load_tile<D>(dos, db, q0);
+    if (threadIdx.x < kTile) {
+      lse_s[threadIdx.x] = lse[static_cast<size_t>(bh) * sq + q0 + threadIdx.x];
+      delta_s[threadIdx.x] = delta[static_cast<size_t>(bh) * sq + q0 + threadIdx.x];
+    }
+    __syncthreads();
+
+    float s[kRows][kCols], dp[kRows][kCols];
+#pragma unroll
+    for (int i = 0; i < kRows; ++i)
+#pragma unroll
+      for (int j = 0; j < kCols; ++j) s[i][j] = dp[i][j] = 0.f;
+#pragma unroll 4
+    for (int d = 0; d < D; ++d) {
+      float a[kRows], w[kRows], b[kCols], g[kCols];
+#pragma unroll
+      for (int i = 0; i < kRows; ++i) {
+        a[i] = ks[(ty * kRows + i) * LD + d];
+        w[i] = vs[(ty * kRows + i) * LD + d];
+      }
+#pragma unroll
+      for (int j = 0; j < kCols; ++j) {
+        b[j] = qs[(tx + 16 * j) * LD + d];
+        g[j] = dos[(tx + 16 * j) * LD + d];
+      }
+#pragma unroll
+      for (int i = 0; i < kRows; ++i)
+#pragma unroll
+        for (int j = 0; j < kCols; ++j) {
+          s[i][j] = fmaf(a[i], b[j], s[i][j]);
+          dp[i][j] = fmaf(w[i], g[j], dp[i][j]);
+        }
+    }
+
+#pragma unroll
+    for (int i = 0; i < kRows; ++i) {
+      const int r = ty * kRows + i;
+      const int k_pos = k0 + r;
+#pragma unroll
+      for (int j = 0; j < kCols; ++j) {
+        const int c = tx + 16 * j;
+        const int q_pos = q0 + c;
+        const bool vis = !causal || q_pos + off >= k_pos;
+        const float p = vis ? expf(s[i][j] * scale - lse_s[c]) : 0.f;
+        float p_eff = p, g = dp[i][j];
+        if (rate > 0.f) {
+          const float u = uniform01(seed, bh, q_pos, k_pos);
+          const float keep_mask = (u >= rate ? 1.f : 0.f) / keep;
+          p_eff = p * keep_mask;
+          g = g * keep_mask;
+        }
+        pts[r * kPLd + c] = p_eff;
+        dst[r * kPLd + c] = p * (g - delta_s[c]);
+      }
+    }
+    __syncthreads();
+
+#pragma unroll 4
+    for (int qq = 0; qq < kTile; ++qq) {
+      float a[kRows], e[kRows], b[kAcc], x[kAcc];
+#pragma unroll
+      for (int i = 0; i < kRows; ++i) {
+        a[i] = pts[(ty * kRows + i) * kPLd + qq];
+        e[i] = dst[(ty * kRows + i) * kPLd + qq];
+      }
+#pragma unroll
+      for (int c = 0; c < kAcc; ++c) {
+        b[c] = dos[qq * LD + tx + 16 * c];
+        x[c] = qs[qq * LD + tx + 16 * c];
+      }
+#pragma unroll
+      for (int i = 0; i < kRows; ++i)
+#pragma unroll
+        for (int c = 0; c < kAcc; ++c) {
+          dv_acc[i][c] = fmaf(a[i], b[c], dv_acc[i][c]);
+          dk_acc[i][c] = fmaf(e[i], x[c], dk_acc[i][c]);
+        }
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < kRows; ++i) {
+    const size_t row = static_cast<size_t>(bh) * sk + k0 + ty * kRows + i;
+#pragma unroll
+    for (int c = 0; c < kAcc; ++c) {
+      dk[row * D + tx + 16 * c] = dk_acc[i][c] * scale;
+      dv[row * D + tx + 16 * c] = dv_acc[i][c];
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// bfloat16 kernels on the tensor cores: mma.sync.m16n8k16 (bfloat16 in,
+// float32 accumulate).  A block of four warps owns 64 rows of its own side
+// (q rows for the forward and dQ, keys for dK/dV), one warp per 16 rows,
+// and loops over the other side's tiles staged in shared memory.  Score,
+// probability and dP tiles stay in registers: the float32 accumulator of
+// two adjacent n8 tiles, packed to bfloat16 pairs, is exactly the A operand
+// of the next m16n8k16 product (keys or queries as its k dimension).  The
+// rounding points are those of the FMA kernels above: p and ds round to
+// bfloat16 before their products, everything else accumulates in float32.
+//
+// Fragment layout of m16n8k16 (g = lane / 4, t = lane % 4): A regs hold
+// (row g | g+8, cols 2t, 2t+1 | +8); B regs hold (k rows 2t, 2t+1 | +8,
+// col g); the accumulator holds (row g, cols 2t, 2t+1) and (row g+8, same).
+constexpr int kMmaThreads = 128;
+constexpr int kMmaRows = 64;  // rows of the block's own side, 16 per warp
+
+using bf16 = __nv_bfloat16;
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x (low half) = lo
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+__device__ __forceinline__ uint32_t pack_bf16(bf16 lo, bf16 hi) {
+  __nv_bfloat162 v;
+  v.x = lo;
+  v.y = hi;
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+__device__ __forceinline__ uint32_t ld32(const bf16* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+__device__ __forceinline__ void mma16816(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// A fragment (16 rows from `row0`, k columns kc .. kc+15) of a row-major
+// bfloat16 matrix with row stride `ld`
+__device__ __forceinline__ void load_a(uint32_t (&a)[4], const bf16* m, int ld, int row0,
+                                       int kc) {
+  const int g = (threadIdx.x % 32) / 4, t = threadIdx.x % 4;
+  const bf16* r0 = m + (size_t)(row0 + g) * ld + kc + 2 * t;
+  const bf16* r1 = r0 + 8 * (size_t)ld;
+  a[0] = ld32(r0);
+  a[1] = ld32(r1);
+  a[2] = ld32(r0 + 8);
+  a[3] = ld32(r1 + 8);
+}
+
+// B fragment (k = kc .. kc+15, n = n0 .. n0+7) for B[k][n] = m[n][k]: the
+// product against a row-major matrix's transpose (two 32-bit loads)
+__device__ __forceinline__ void load_b_t(uint32_t& b0, uint32_t& b1, const bf16* m, int ld,
+                                         int n0, int kc) {
+  const int g = (threadIdx.x % 32) / 4, t = threadIdx.x % 4;
+  const bf16* r = m + (size_t)(n0 + g) * ld + kc + 2 * t;
+  b0 = ld32(r);
+  b1 = ld32(r + 8);
+}
+
+// B fragment (k = kc .. kc+15, n = n0 .. n0+7) for B[k][n] = m[k][n]: the
+// product against a row-major matrix itself (four 16-bit loads)
+__device__ __forceinline__ void load_b(uint32_t& b0, uint32_t& b1, const bf16* m, int ld,
+                                       int n0, int kc) {
+  const int g = (threadIdx.x % 32) / 4, t = threadIdx.x % 4;
+  const bf16* c = m + (size_t)(kc + 2 * t) * ld + n0 + g;
+  b0 = pack_bf16(c[0], c[ld]);
+  b1 = pack_bf16(c[8 * (size_t)ld], c[9 * (size_t)ld]);
+}
+
+// rows [r0, r0 + n) of a (S, D) bfloat16 matrix into shared memory with row
+// stride D + 8 (16-byte copies; the pad puts fragment loads on distinct banks)
+template <int D>
+__device__ __forceinline__ void stage_rows(bf16* dst, const bf16* __restrict__ src, int r0,
+                                           int n) {
+  constexpr int kChunks = D / 8;  // 16-byte pieces per row
+  const uint4* s = reinterpret_cast<const uint4*>(src + (size_t)r0 * D);
+  for (int idx = threadIdx.x; idx < n * kChunks; idx += blockDim.x) {
+    const int r = idx / kChunks, c = idx % kChunks;
+    *reinterpret_cast<uint4*>(dst + r * (D + 8) + 8 * c) = s[idx];
+  }
+}
+
+// reductions over the four lanes (t) that share a row
+__device__ __forceinline__ float quad_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+}
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
+template <int D>
+__global__ void __launch_bounds__(kMmaThreads)
+flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                     const bf16* __restrict__ v, bf16* __restrict__ out,
+                     float* __restrict__ lse, int sq, int sk, int causal, float scale,
+                     float rate, float keep, uint32_t seed) {
+  constexpr int LD = D + 8;
+  constexpr int KD = D / 16, ND = D / 8, NK = kTile / 8;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* ks = reinterpret_cast<bf16*>(smem_raw);  // [kTile][LD]
+  bf16* vs = ks + kTile * LD;                     // [kTile][LD]
+
+  const int bh = blockIdx.y;
+  const int q0 = blockIdx.x * kMmaRows;
+  const int warp = threadIdx.x / 32, g = (threadIdx.x % 32) / 4, t = threadIdx.x % 4;
+  const int off = sk - sq;
+  const int row[2] = {q0 + warp * 16 + g, q0 + warp * 16 + g + 8};
+  const bf16* qb = q + (size_t)bh * sq * D;
+  const bf16* kb = k + (size_t)bh * sk * D;
+  const bf16* vb = v + (size_t)bh * sk * D;
+  int k_end = sk;
+  if (causal) k_end = min(sk, max(0, q0 + kMmaRows + off));
+
+  uint32_t qa[KD][4];
+#pragma unroll
+  for (int kk = 0; kk < KD; ++kk) load_a(qa[kk], qb, D, q0 + warp * 16, kk * 16);
+
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f}, o[ND][4];
+#pragma unroll
+  for (int n = 0; n < ND; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
+
+  for (int k0 = 0; k0 < k_end; k0 += kTile) {
+    __syncthreads();
+    stage_rows<D>(ks, kb, k0, kTile);
+    stage_rows<D>(vs, vb, k0, kTile);
+    __syncthreads();
+
+    float s[NK][4];
+#pragma unroll
+    for (int j = 0; j < NK; ++j) {
+      s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < KD; ++kk) {
+        uint32_t b0, b1;
+        load_b_t(b0, b1, ks, LD, 8 * j, 16 * kk);
+        mma16816(s[j], qa[kk], b0, b1);
+      }
+    }
+
+    float mx[2] = {kNegInf, kNegInf};
+#pragma unroll
+    for (int j = 0; j < NK; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int k_pos = k0 + 8 * j + 2 * t + (e & 1);
+        const bool vis = !causal || row[e / 2] + off >= k_pos;
+        s[j][e] = vis ? s[j][e] * scale : kNegInf;
+        mx[e / 2] = fmaxf(mx[e / 2], s[j][e]);
+      }
+    float m_new[2], alpha[2], psum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      m_new[h] = fmaxf(m[h], quad_max(mx[h]));
+      alpha[h] = expf(m[h] - m_new[h]);
+    }
+#pragma unroll
+    for (int j = 0; j < NK; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int h = e / 2;
+        const int k_pos = k0 + 8 * j + 2 * t + (e & 1);
+        const bool vis = !causal || row[h] + off >= k_pos;
+        float p = vis ? expf(s[j][e] - m_new[h]) : 0.f;
+        psum[h] += p;
+        if (rate > 0.f) {
+          const float u = uniform01(seed, bh, row[h], k_pos);
+          p = u >= rate ? p / keep : 0.f;
+        }
+        s[j][e] = p;
+      }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      l[h] = l[h] * alpha[h] + quad_sum(psum[h]);
+      m[h] = m_new[h];
+    }
+#pragma unroll
+    for (int n = 0; n < ND; ++n) {
+      o[n][0] *= alpha[0];
+      o[n][1] *= alpha[0];
+      o[n][2] *= alpha[1];
+      o[n][3] *= alpha[1];
+    }
+
+#pragma unroll
+    for (int kk = 0; kk < kTile / 16; ++kk) {
+      const uint32_t a[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
+                             pack_bf16(s[2 * kk][2], s[2 * kk][3]),
+                             pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
+                             pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
+#pragma unroll
+      for (int n = 0; n < ND; ++n) {
+        uint32_t b0, b1;
+        load_b(b0, b1, vs, LD, 8 * n, 16 * kk);
+        mma16816(o[n], a, b0, b1);
+      }
+    }
+  }
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const float l_safe = fmaxf(l[h], 1e-30f);
+    bf16* orow = out + ((size_t)bh * sq + row[h]) * D;
+#pragma unroll
+    for (int n = 0; n < ND; ++n) {
+      const uint32_t pr = pack_bf16(o[n][2 * h] / l_safe, o[n][2 * h + 1] / l_safe);
+      *reinterpret_cast<uint32_t*>(orow + 8 * n + 2 * t) = pr;
+    }
+    if (t == 0) lse[(size_t)bh * sq + row[h]] = m[h] + logf(l_safe);
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(kMmaThreads)
+flash_bwd_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                        const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                        const float* __restrict__ lse, const float* __restrict__ delta,
+                        bf16* __restrict__ dq, int sq, int sk, int causal, float scale,
+                        float rate, float keep, uint32_t seed) {
+  constexpr int LD = D + 8;
+  constexpr int KD = D / 16, ND = D / 8, NK = kTile / 8;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* qs = reinterpret_cast<bf16*>(smem_raw);  // [kMmaRows][LD]
+  bf16* dos = qs + kMmaRows * LD;                // [kMmaRows][LD]
+  bf16* ks = dos + kMmaRows * LD;                // [kTile][LD]
+  bf16* vs = ks + kTile * LD;                    // [kTile][LD]
+
+  const int bh = blockIdx.y;
+  const int q0 = blockIdx.x * kMmaRows;
+  const int warp = threadIdx.x / 32, g = (threadIdx.x % 32) / 4, t = threadIdx.x % 4;
+  const int off = sk - sq;
+  const int row[2] = {q0 + warp * 16 + g, q0 + warp * 16 + g + 8};
+  const bf16* kb = k + (size_t)bh * sk * D;
+  const bf16* vb = v + (size_t)bh * sk * D;
+  int k_end = sk;
+  if (causal) k_end = min(sk, max(0, q0 + kMmaRows + off));
+
+  stage_rows<D>(qs, q + (size_t)bh * sq * D, q0, kMmaRows);
+  stage_rows<D>(dos, dout + (size_t)bh * sq * D, q0, kMmaRows);
+  float row_lse[2], row_delta[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    row_lse[h] = lse[(size_t)bh * sq + row[h]];
+    row_delta[h] = delta[(size_t)bh * sq + row[h]];
+  }
+  float acc[ND][4];
+#pragma unroll
+  for (int n = 0; n < ND; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+
+  for (int k0 = 0; k0 < k_end; k0 += kTile) {
+    __syncthreads();
+    stage_rows<D>(ks, kb, k0, kTile);
+    stage_rows<D>(vs, vb, k0, kTile);
+    __syncthreads();
+
+    float s[NK][4], dp[NK][4];
+#pragma unroll
+    for (int j = 0; j < NK; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < KD; ++kk) {
+      uint32_t aq[4], ado[4];
+      load_a(aq, qs, LD, warp * 16, 16 * kk);
+      load_a(ado, dos, LD, warp * 16, 16 * kk);
+#pragma unroll
+      for (int j = 0; j < NK; ++j) {
+        uint32_t b0, b1;
+        load_b_t(b0, b1, ks, LD, 8 * j, 16 * kk);
+        mma16816(s[j], aq, b0, b1);
+        load_b_t(b0, b1, vs, LD, 8 * j, 16 * kk);
+        mma16816(dp[j], ado, b0, b1);
+      }
+    }
+
+#pragma unroll
+    for (int j = 0; j < NK; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int h = e / 2;
+        const int k_pos = k0 + 8 * j + 2 * t + (e & 1);
+        const bool vis = !causal || row[h] + off >= k_pos;
+        const float p = vis ? expf(s[j][e] * scale - row_lse[h]) : 0.f;
+        float gr = dp[j][e];
+        if (rate > 0.f) {
+          const float u = uniform01(seed, bh, row[h], k_pos);
+          gr = u >= rate ? gr / keep : 0.f;
+        }
+        s[j][e] = p * (gr - row_delta[h]);  // ds
+      }
+
+#pragma unroll
+    for (int kk = 0; kk < kTile / 16; ++kk) {
+      const uint32_t a[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
+                             pack_bf16(s[2 * kk][2], s[2 * kk][3]),
+                             pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
+                             pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
+#pragma unroll
+      for (int n = 0; n < ND; ++n) {
+        uint32_t b0, b1;
+        load_b(b0, b1, ks, LD, 8 * n, 16 * kk);
+        mma16816(acc[n], a, b0, b1);
+      }
+    }
+  }
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    bf16* drow = dq + ((size_t)bh * sq + row[h]) * D;
+#pragma unroll
+    for (int n = 0; n < ND; ++n)
+      *reinterpret_cast<uint32_t*>(drow + 8 * n + 2 * t) =
+          pack_bf16(acc[n][2 * h] * scale, acc[n][2 * h + 1] * scale);
+  }
+}
+
+// queries per iteration of the dK/dV loop: D = 128 halves it to keep the
+// two D-wide accumulators and the score tiles within the register budget
+template <int D>
+__host__ __device__ constexpr int mma_dkv_q_tile() { return D == 128 ? 32 : 64; }
+
+template <int D>
+__global__ void __launch_bounds__(kMmaThreads)
+flash_bwd_dkv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                         const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                         const float* __restrict__ lse, const float* __restrict__ delta,
+                         bf16* __restrict__ dk, bf16* __restrict__ dv, int sq, int sk,
+                         int causal, float scale, float rate, float keep, uint32_t seed) {
+  constexpr int LD = D + 8;
+  constexpr int NQ = mma_dkv_q_tile<D>();
+  constexpr int KD = D / 16, ND = D / 8, NJ = NQ / 8;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* ks = reinterpret_cast<bf16*>(smem_raw);  // [kMmaRows][LD]
+  bf16* vs = ks + kMmaRows * LD;                 // [kMmaRows][LD]
+  bf16* qs = vs + kMmaRows * LD;                 // [NQ][LD]
+  bf16* dos = qs + NQ * LD;                      // [NQ][LD]
+  float* lse_s = reinterpret_cast<float*>(dos + NQ * LD);  // [NQ]
+  float* delta_s = lse_s + NQ;                              // [NQ]
+
+  const int bh = blockIdx.y;
+  const int k0 = blockIdx.x * kMmaRows;
+  const int warp = threadIdx.x / 32, g = (threadIdx.x % 32) / 4, t = threadIdx.x % 4;
+  const int off = sk - sq;
+  const int key[2] = {k0 + warp * 16 + g, k0 + warp * 16 + g + 8};
+  const bf16* qb = q + (size_t)bh * sq * D;
+  const bf16* db = dout + (size_t)bh * sq * D;
+  int q_begin = 0;
+  if (causal) q_begin = max(0, (k0 - off) / NQ * NQ);
+
+  stage_rows<D>(ks, k + (size_t)bh * sk * D, k0, kMmaRows);
+  stage_rows<D>(vs, v + (size_t)bh * sk * D, k0, kMmaRows);
+  float dk_acc[ND][4], dv_acc[ND][4];
+#pragma unroll
+  for (int n = 0; n < ND; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk_acc[n][e] = dv_acc[n][e] = 0.f;
+
+  for (int q0 = q_begin; q0 < sq; q0 += NQ) {
+    __syncthreads();
+    stage_rows<D>(qs, qb, q0, NQ);
+    stage_rows<D>(dos, db, q0, NQ);
+    if (threadIdx.x < NQ) {
+      lse_s[threadIdx.x] = lse[(size_t)bh * sq + q0 + threadIdx.x];
+      delta_s[threadIdx.x] = delta[(size_t)bh * sq + q0 + threadIdx.x];
+    }
+    __syncthreads();
+
+    // s^T (keys x queries) = K Q^T and dp^T = V dO^T
+    float s[NJ][4], dp[NJ][4];
+#pragma unroll
+    for (int j = 0; j < NJ; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < KD; ++kk) {
+      uint32_t ak[4], av[4];
+      load_a(ak, ks, LD, warp * 16, 16 * kk);
+      load_a(av, vs, LD, warp * 16, 16 * kk);
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) {
+        uint32_t b0, b1;
+        load_b_t(b0, b1, qs, LD, 8 * j, 16 * kk);
+        mma16816(s[j], ak, b0, b1);
+        load_b_t(b0, b1, dos, LD, 8 * j, 16 * kk);
+        mma16816(dp[j], av, b0, b1);
+      }
+    }
+
+    // s becomes p_eff^T, dp becomes ds^T
+#pragma unroll
+    for (int j = 0; j < NJ; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int c = 8 * j + 2 * t + (e & 1);
+        const int q_pos = q0 + c, k_pos = key[e / 2];
+        const bool vis = !causal || q_pos + off >= k_pos;
+        const float p = vis ? expf(s[j][e] * scale - lse_s[c]) : 0.f;
+        float p_eff = p, gr = dp[j][e];
+        if (rate > 0.f) {
+          const float u = uniform01(seed, bh, q_pos, k_pos);
+          const float keep_mask = (u >= rate ? 1.f : 0.f) / keep;
+          p_eff = p * keep_mask;
+          gr = gr * keep_mask;
+        }
+        s[j][e] = p_eff;
+        dp[j][e] = p * (gr - delta_s[c]);
+      }
+
+#pragma unroll
+    for (int kk = 0; kk < NQ / 16; ++kk) {
+      const uint32_t ap[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
+                              pack_bf16(s[2 * kk][2], s[2 * kk][3]),
+                              pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
+                              pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
+      const uint32_t ad[4] = {pack_bf16(dp[2 * kk][0], dp[2 * kk][1]),
+                              pack_bf16(dp[2 * kk][2], dp[2 * kk][3]),
+                              pack_bf16(dp[2 * kk + 1][0], dp[2 * kk + 1][1]),
+                              pack_bf16(dp[2 * kk + 1][2], dp[2 * kk + 1][3])};
+#pragma unroll
+      for (int n = 0; n < ND; ++n) {
+        uint32_t b0, b1;
+        load_b(b0, b1, dos, LD, 8 * n, 16 * kk);
+        mma16816(dv_acc[n], ap, b0, b1);
+        load_b(b0, b1, qs, LD, 8 * n, 16 * kk);
+        mma16816(dk_acc[n], ad, b0, b1);
+      }
+    }
+  }
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const size_t r = ((size_t)bh * sk + key[h]) * D;
+#pragma unroll
+    for (int n = 0; n < ND; ++n) {
+      *reinterpret_cast<uint32_t*>(dk + r + 8 * n + 2 * t) =
+          pack_bf16(dk_acc[n][2 * h] * scale, dk_acc[n][2 * h + 1] * scale);
+      *reinterpret_cast<uint32_t*>(dv + r + 8 * n + 2 * t) =
+          pack_bf16(dv_acc[n][2 * h], dv_acc[n][2 * h + 1]);
+    }
+  }
+}
+
+constexpr size_t tile_bytes(int d) { return sizeof(float) * kTile * (d + 1); }
+constexpr size_t p_bytes() { return sizeof(float) * kTile * kPLd; }
+
+// launch `kernel` on grid (n_tiles, bh) with `smem` bytes of dynamic shared
+// memory; an attribute refusal is cleared so the next launch does not see it
+template <typename Kernel, typename... Args>
+cudaError_t launch(Kernel kernel, int n_tiles, int bh, int threads, size_t smem,
+                   cudaStream_t stream, Args... args) {
+  if (smem > 48 * 1024) {
+    cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) {
+      cudaGetLastError();
+      return err;
+    }
+  }
+  kernel<<<dim3(n_tiles, bh), threads, smem, stream>>>(args...);
+  return cudaGetLastError();
+}
+
+bool bad_shape(int bh, int sq, int sk, int d) {
+  return bh < 1 || bh > 65535 || sq < kTile || sk < kTile || sq % kTile || sk % kTile ||
+         (d != 64 && d != 128);
+}
+
+constexpr size_t mma_tile_bytes(int d, int rows) { return sizeof(bf16) * rows * (d + 8); }
+
+// float32 inputs take the FMA kernels, bfloat16 inputs the tensor-core ones
+template <typename T, int D>
+cudaError_t fwd(const void* q, const void* k, const void* v, void* out, float* lse, int bh,
+                int sq, int sk, int causal, float scale, float rate, float keep, uint32_t seed,
+                cudaStream_t s) {
+  if constexpr (std::is_same<T, bf16>::value) {
+    return launch(flash_fwd_mma_kernel<D>, sq / kMmaRows, bh, kMmaThreads,
+                  2 * mma_tile_bytes(D, kTile), s, static_cast<const bf16*>(q),
+                  static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+                  static_cast<bf16*>(out), lse, sq, sk, causal, scale, rate, keep, seed);
+  } else {
+    return launch(flash_fwd_kernel<D>, sq / kTile, bh, kThreads,
+                  3 * tile_bytes(D) + p_bytes(), s, static_cast<const float*>(q),
+                  static_cast<const float*>(k), static_cast<const float*>(v),
+                  static_cast<float*>(out), lse, sq, sk, causal, scale, rate, keep, seed);
+  }
+}
+
+template <typename T, int D>
+cudaError_t bwd_dq(const void* q, const void* k, const void* v, const void* dout,
+                   const float* lse, const float* delta, void* dq, int bh, int sq, int sk,
+                   int causal, float scale, float rate, float keep, uint32_t seed,
+                   cudaStream_t s) {
+  if constexpr (std::is_same<T, bf16>::value) {
+    return launch(flash_bwd_dq_mma_kernel<D>, sq / kMmaRows, bh, kMmaThreads,
+                  2 * mma_tile_bytes(D, kMmaRows) + 2 * mma_tile_bytes(D, kTile), s,
+                  static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+                  static_cast<const bf16*>(v), static_cast<const bf16*>(dout), lse, delta,
+                  static_cast<bf16*>(dq), sq, sk, causal, scale, rate, keep, seed);
+  } else {
+    return launch(flash_bwd_dq_kernel<D>, sq / kTile, bh, kThreads,
+                  4 * tile_bytes(D) + p_bytes(), s, static_cast<const float*>(q),
+                  static_cast<const float*>(k), static_cast<const float*>(v),
+                  static_cast<const float*>(dout), lse, delta, static_cast<float*>(dq), sq, sk,
+                  causal,
+                  scale, rate, keep, seed);
+  }
+}
+
+template <typename T, int D>
+cudaError_t bwd_dkv(const void* q, const void* k, const void* v, const void* dout,
+                    const float* lse, const float* delta, void* dk, void* dv, int bh, int sq,
+                    int sk, int causal, float scale, float rate, float keep, uint32_t seed,
+                    cudaStream_t s) {
+  if constexpr (std::is_same<T, bf16>::value) {
+    constexpr int nq = mma_dkv_q_tile<D>();
+    return launch(flash_bwd_dkv_mma_kernel<D>, sk / kMmaRows, bh, kMmaThreads,
+                  2 * mma_tile_bytes(D, kMmaRows) + 2 * mma_tile_bytes(D, nq) +
+                      2 * sizeof(float) * nq,
+                  s, static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+                  static_cast<const bf16*>(v), static_cast<const bf16*>(dout), lse, delta,
+                  static_cast<bf16*>(dk), static_cast<bf16*>(dv), sq, sk, causal, scale, rate,
+                  keep, seed);
+  } else {
+    return launch(flash_bwd_dkv_kernel<D>, sk / kTile, bh, kThreads,
+                  4 * tile_bytes(D) + 2 * p_bytes() + 2 * sizeof(float) * kTile, s,
+                  static_cast<const float*>(q), static_cast<const float*>(k),
+                  static_cast<const float*>(v),
+                  static_cast<const float*>(dout), lse, delta, static_cast<float*>(dk),
+                  static_cast<float*>(dv), sq, sk, causal, scale, rate, keep, seed);
+  }
+}
+
+// dispatch on (bfloat16?, head dim) to the template instance
+#define FF_DISPATCH(FN, ...)                                                             \
+  if (bf16_in) {                                                                         \
+    return static_cast<int>(d == 64 ? FN<bf16, 64>(__VA_ARGS__) : FN<bf16, 128>(__VA_ARGS__)); \
+  }                                                                                      \
+  return static_cast<int>(d == 64 ? FN<float, 64>(__VA_ARGS__) : FN<float, 128>(__VA_ARGS__))
+
+}  // namespace
+
+// q (bh, sq, d), k/v (bh, sk, d), out like q, lse float32 (bh, sq); sq and
+// sk multiples of 64, d 64 or 128; all contiguous, in one dtype.
+extern "C" int ff_flash_fwd(const void* q, const void* k, const void* v, void* out, void* lse,
+                            int bh, int sq, int sk, int d, int causal, float scale, float rate,
+                            float keep, unsigned int seed, int bf16_in, void* stream) {
+  if (bad_shape(bh, sq, sk, d)) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  FF_DISPATCH(fwd, q, k, v, out, static_cast<float*>(lse), bh, sq, sk, causal, scale, rate,
+              keep, seed, s);
+}
+
+extern "C" int ff_flash_bwd_dq(const void* q, const void* k, const void* v, const void* dout,
+                               const void* lse, const void* delta, void* dq, int bh, int sq,
+                               int sk, int d, int causal, float scale, float rate, float keep,
+                               unsigned int seed, int bf16_in, void* stream) {
+  if (bad_shape(bh, sq, sk, d)) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  FF_DISPATCH(bwd_dq, q, k, v, dout, static_cast<const float*>(lse),
+              static_cast<const float*>(delta), dq, bh, sq, sk, causal, scale, rate, keep, seed,
+              s);
+}
+
+extern "C" int ff_flash_bwd_dkv(const void* q, const void* k, const void* v, const void* dout,
+                                const void* lse, const void* delta, void* dk, void* dv, int bh,
+                                int sq, int sk, int d, int causal, float scale, float rate,
+                                float keep, unsigned int seed, int bf16_in, void* stream) {
+  if (bad_shape(bh, sq, sk, d)) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  FF_DISPATCH(bwd_dkv, q, k, v, dout, static_cast<const float*>(lse),
+              static_cast<const float*>(delta), dk, dv, bh, sq, sk, causal, scale, rate, keep,
+              seed, s);
+}
+
+extern "C" const char* ff_flash_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}

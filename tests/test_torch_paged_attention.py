@@ -169,4 +169,4 @@ def test_library_name_follows_source_hash(tmp_path):
     a = tcuda.library_path("paged_attention", tmp_path)
     assert a == tcuda.library_path("paged_attention", tmp_path)
     assert a.parent == tmp_path and a.name.startswith("libpaged_attention-")
-    assert list(tcuda.sources()) == ["paged_attention"]
+    assert list(tcuda.sources()) == ["flash_attention", "paged_attention"]

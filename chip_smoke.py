@@ -21,6 +21,14 @@ Phases, each printing one JSON line; any failure exits non-zero:
    the next launch must still succeed.
    Then the kernel, the plain version and ``scaled_dot_product_attention``
    on pre-gathered K/V are timed at the serve phase's shapes.
+   ``paged_attention_quant``: the same kernel over int8 and float8 e4m3
+   pools with their per-position scale rows, q float32 and bfloat16,
+   G = 1, 4 and 32, with the same tolerances; pages past each lane's view
+   hold ints at the format's maximum with scale rows 1e4, the trash block
+   the same ints with zero scales.  ``paged_attention_quant_timing`` times
+   it at the serve shapes beside its bound (1-byte K/V plus two float32
+   scales per visible position), its plain version and
+   ``scaled_dot_product_attention`` on pre-gathered dequantized K/V.
 3. ``serve``: the port's main path, ``ServeEngine.run`` at GPT-2-small
    width and depth (hidden 768, 12 heads, ff 3072, 12 layers, vocab
    50257, seq 1024), float32, random weights from a seed, 8 slots,
@@ -33,6 +41,17 @@ Phases, each printing one JSON line; any failure exits non-zero:
    next-token probabilities compared.
    ``profile`` then traces a separate serve run: device time by kernel
    and the device's idle share.
+   ``serve_quant`` serves the same requests with ``kv_dtype`` "int8" and
+   "fp8": every request must finish with its full budget, the quantized
+   kernel's launches must equal 12 x (decode steps + prefill dispatches),
+   one host sync per window; the gather path's streams are compared and
+   its programs' probabilities must agree within ``QUANT_PROB_TOL``.
+   ``serve_spec`` adds speculative decoding (k = 3, a 6-layer draft) over
+   int8 pools: launches 12 x (prefill dispatches + macros) + 6 x 3 x
+   macros, and every stream equal to the plain int8 greedy stream up to
+   the first token whose relative top-2 margin in the plain run is under
+   1e-4.  ``profile_quant`` traces the profile run with int8 pools.
+   ``serve_w8`` serves with int8 weights and int8 pools.
 4. ``flash_attention``: the three flash kernels (forward, dQ, dK/dV)
    against their plain versions at the training slice's shape (B 16,
    H 12, S 512, D 64, float32 and bfloat16), causal with Sq 128 / Sk 256,
@@ -57,8 +76,9 @@ Phases, each printing one JSON line; any failure exits non-zero:
    relative (float32) or 2e-2 (bfloat16).  ``train_profile`` traces 3
    more float32 steps: device time by kernel and the idle share.
 6. ``kernels``: one line ``{"kernels": [...]}`` with each kernel's
-   route, source, the TPU kernel it replaces, launches on the main path,
-   error against the plain version, times and bound.
+   route, source, the TPU kernel it replaces, launches on its path
+   (``paged_attention_quant``: the int8 ``serve_quant`` run, fp8 beside
+   it), error against the plain version, times and bound.
 
 The line before the last is the card's name and power limit from
 ``nvidia-smi``; the last line is
@@ -87,6 +107,15 @@ TRAIN_B, TRAIN_S, TRAIN_CLASSES, TRAIN_STEPS, TRAIN_LR = 16, 512, 64, 5, 1e-4
 FLASH_TOL = {("float32", "fwd"): 2e-5, ("float32", "bwd"): 1e-4,
              ("bfloat16", "fwd"): 2e-2, ("bfloat16", "bwd"): 2e-2}
 TRAIN_LOSS_TOL = {"float32": 1e-4, "bfloat16": 2e-2}  # flash vs sdpa, relative
+# paged against gather programs over quantized pools, relative to the largest
+# probability: a float32 difference between the two paths can flip one
+# stored int8 step or e4m3 step (up to 1/8 of an element) of the K/V the
+# later layers write, ten times the float32 pools' 1e-3
+QUANT_PROB_TOL = 1e-2
+# speculative arm: draft 3 tokens with the first 6 of 12 layers; its streams
+# must equal the plain int8 greedy streams up to the first token whose
+# relative top-2 margin (p1 - p2) / p1 is under SPEC_MARGIN
+SPEC_K, SPEC_DRAFT, SPEC_MARGIN = 3, 6, 1e-4
 # published peaks of the cards the port runs on (NVIDIA data sheet,
 # dense): HBM bytes/s, float32 non-tensor flop/s (the float32 kernels do
 # their arithmetic on CUDA cores) and bfloat16 tensor-core flop/s (the
@@ -131,6 +160,7 @@ def main() -> int:
     from flexflow_tpu_torch.ops.cuda import paged_attention as pa
     from flexflow_tpu_torch.runtime.driver import build_model, make_batch, run
     from flexflow_tpu_torch.serve import ServeEngine, TrafficSpec, synthetic_requests
+    from flexflow_tpu_torch.serve.kvcache import kv_qmax, pool_bits, quantize_kv
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -163,6 +193,32 @@ def main() -> int:
         return (q.to(dev, q_dtype or dtype), pk.to(dev, dtype), pv.to(dev, dtype),
                 torch.from_numpy(pos.astype(np.int32)).to(dev),
                 torch.from_numpy(bt).to(dev))
+
+    def quant_case(rng, G, kv_dtype, pos, q_dtype):
+        """Pools quantized from normal K/V by the pools' own rule; pages past
+        each lane's last visible page poisoned (ints at the format's
+        maximum, scale rows 1e4), the trash block poisoned with zero
+        scales."""
+        N = B * MB + 1
+        q = torch.from_numpy(rng.standard_normal((B, G, H, D)).astype(np.float32))
+        pools = []
+        for _ in range(2):
+            x = torch.from_numpy(rng.standard_normal((N, BS, H, D)).astype(np.float32)).to(dev)
+            qx, sc = quantize_kv(x, kv_dtype)
+            qx = pool_bits(qx).permute(0, 2, 1, 3).contiguous().view(qx.dtype)
+            pools.append((qx, sc.contiguous()))
+        bt = (rng.permutation(N - 1) + 1)[: B * MB].reshape(B, MB).astype(np.int32)
+        top = torch.full((H, BS, D), kv_qmax(kv_dtype), device=dev).to(pools[0][0].dtype)
+        past = [int(bt[b, i]) for b in range(B)
+                for i in range((int(pos[b]) + G - 1) // BS + 1, MB)]
+        idx = torch.tensor([0] + past, dtype=torch.long, device=dev)
+        for pool, sc in pools:
+            pool_bits(pool)[idx] = pool_bits(top)
+            sc[idx] = 1e4
+            sc[0] = 0.0
+        (pk, sk), (pv, sv) = pools
+        return (q.to(dev, q_dtype), pk, pv, sk, sv,
+                torch.from_numpy(pos.astype(np.int32)).to(dev), torch.from_numpy(bt).to(dev))
 
     rng = np.random.default_rng(SEED)
     worst = 0.0
@@ -232,29 +288,42 @@ def main() -> int:
             times.append(e0.elapsed_time(e1))
         return float(np.median(times))
 
-    def timing(G, ctx):
+    def timing(G, ctx, kv_dtype=None):
         """The kernel at the serve phase's shapes: 8 lanes whose row 0 sits
-        at ``ctx`` (float32 pool)."""
+        at ``ctx``; a float32 pool, or an int8/fp8 one with its scales."""
         pos = np.full(B, ctx, np.int64)
-        q, pk, pv, p_d, bt = case(np.random.default_rng(SEED + G), G, torch.float32, pos)
+        rng_t = np.random.default_rng(SEED + G)
+        if kv_dtype is None:
+            q, pk, pv, p_d, bt = case(rng_t, G, torch.float32, pos)
+            sk = sv = None
+        else:
+            q, pk, pv, sk, sv, p_d, bt = quant_case(rng_t, G, kv_dtype, pos, torch.float32)
         scale = 1.0 / math.sqrt(D)
-        keys = pk[bt.long()].permute(0, 2, 1, 3, 4).reshape(B, H, MB * BS, D)
-        vals = pv[bt.long()].permute(0, 2, 1, 3, 4).reshape(B, H, MB * BS, D)
+
+        def dense(pool, sc):  # (B, H, SV, D) float32, dequantized
+            pages = pool_bits(pool)[bt.long()].view(pool.dtype).float()
+            if sc is not None:
+                pages = pages * sc[bt.long()][:, :, None, :, None]
+            return pages.permute(0, 2, 1, 3, 4).reshape(B, H, MB * BS, D)
+
+        keys, vals = dense(pk, sk), dense(pv, sv)
         k_pos = torch.arange(MB * BS, device=dev)
         rows = p_d.long()[:, None] + torch.arange(G, device=dev)
         mask = (k_pos[None, None, :] <= rows[:, :, None])[:, None]  # (B, 1, G, SV)
         qh = q.permute(0, 2, 1, 3).contiguous()
-        ms = time_ms(lambda: pa.paged_attention(q, pk, pv, p_d, bt, scale))
-        plain_ms = time_ms(lambda: pa.paged_attention_plain(q, pk, pv, p_d, bt, scale))
+        ms = time_ms(lambda: pa.paged_attention(q, pk, pv, p_d, bt, scale, sk, sv))
+        plain_ms = time_ms(lambda: pa.paged_attention_plain(q, pk, pv, p_d, bt, scale, sk, sv))
         library_ms = time_ms(lambda: F.scaled_dot_product_attention(
             qh, keys, vals, attn_mask=mask, scale=scale))
         # least work: the K and V of each position some row of the lane
-        # sees, read once (all heads); q read and out written once; the
-        # positions and the live table entries read once; 4*D flops per
-        # visible (row, key) pair (scores and weighted sum)
+        # sees, read once (all heads), with its two float32 scales when
+        # quantized; q read and out written once; the positions and the
+        # live table entries read once; 4*D flops per visible (row, key)
+        # pair (scores and weighted sum)
         seen = np.minimum(pos + G, MB * BS)
         last = np.minimum((pos + G - 1) // BS, MB - 1)
-        nbytes = (2 * H * D * 4 * int(seen.sum()) + 2 * B * G * H * D * 4 + 4 * B
+        per_pos = 2 * H * D * pk.element_size() + (2 * 4 if sk is not None else 0)
+        nbytes = (per_pos * int(seen.sum()) + 2 * B * G * H * D * 4 + 4 * B
                   + 4 * int((last + 1).sum()))
         visible = sum(int(pos[b]) + g + 1 for b in range(B) for g in range(G))
         flops = 4 * D * H * visible
@@ -274,7 +343,51 @@ def main() -> int:
                           "virtual length (the gather itself not timed)",
           "card": card})
 
+    # --- 2q. paged_attention_quant: int8/fp8 pools against plain, timing ------
+    quant_worst = {}  # kv dtype -> max abs err over the float32-q cases
+    for kv_dtype in ("int8", "fp8"):
+        for q_dtype in (f32, bf16):
+            for G in (1, 4, CHUNK):
+                pos = np.minimum(
+                    BS * rng.integers(0, MB, size=B) + BS // 2 + np.arange(B), MB * BS - G)
+                args = quant_case(rng, G, kv_dtype, pos, q_dtype)
+                q, pk, pv, sk, sv, p_d, bt = args
+                got = pa.paged_attention(q, pk, pv, p_d, bt, None, sk, sv)
+                torch.cuda.synchronize()
+                want = pa.paged_attention_plain(q, pk, pv, p_d, bt, None, sk, sv)
+                err = (got.float() - want.float()).abs()
+                name = str(q_dtype).replace("torch.", "")
+                atol, rtol = TOL[name]
+                ok = bool(torch.isfinite(got.float()).all()) and bool(
+                    (err <= atol + rtol * want.float().abs()).all())
+                max_err = float(err.max())
+                if q_dtype == f32:
+                    quant_worst[kv_dtype] = max(quant_worst.get(kv_dtype, 0.0), max_err)
+                emit({"phase": "paged_attention_quant", "kv_dtype": kv_dtype, "q_dtype": name,
+                      "pool_dtype": str(pk.dtype).replace("torch.", ""), "G": G, "B": B,
+                      "H": H, "D": D, "BS": BS, "MB": MB, "positions": pos.tolist(),
+                      "max_abs_err": max_err,
+                      "rel_err": max_err / float(want.float().abs().max()),
+                      "atol": atol, "rtol": rtol, "ok": ok})
+                if not ok:
+                    raise SystemExit(f"paged_attention_quant {kv_dtype} q {q_dtype} G={G}: "
+                                     f"kernel disagrees with the plain version "
+                                     f"(max abs err {max_err})")
+    t_quant = {kv: {"decode": timing(1, 512, kv), "prefill": timing(CHUNK, 480, kv)}
+               for kv in ("int8", "fp8")}
+    emit({"phase": "paged_attention_quant_timing", **t_quant,
+          "peaks": {"bytes_per_s": peak_bw, "f32_flop_per_s": peak_f32},
+          "library_call": "scaled_dot_product_attention on K/V pre-gathered and dequantized "
+                          "at the full virtual length (neither timed)",
+          "card": card})
+
     # --- 3. serve: the port's main path --------------------------------------
+    def zero_counts():
+        pa.LAUNCHES = 0
+        pa.LAUNCHES_BY_POOL.clear()
+        for kind in fa.LAUNCHES:
+            fa.LAUNCHES[kind] = 0
+
     model = GPTDecoder(seq=SEQ, vocab=VOCAB, seed=SEED, device=dev, **GPT2_SMALL)
     engine_kw = dict(slots=B, block_size=BS, prefill_chunk=CHUNK, sync_every=4, device=dev)
     spec = TrafficSpec(n_requests=16, seed=SEED, prompt_len=(128, 512),
@@ -283,9 +396,7 @@ def main() -> int:
     if eng.attn_kernel != "paged":
         raise SystemExit(f"attn='auto' resolved to {eng.attn_kernel!r} on CUDA")
     reqs = synthetic_requests(spec)
-    pa.LAUNCHES = 0  # every kernel count to 0 just before the main path
-    for kind in fa.LAUNCHES:
-        fa.LAUNCHES[kind] = 0
+    zero_counts()  # every kernel count to 0 just before the main path
     torch.cuda.synchronize()
     rep = eng.run(reqs)
     launches_serve = launches = pa.LAUNCHES
@@ -321,37 +432,47 @@ def main() -> int:
     rep_g = eng_g.run(reqs_g)
     if pa.LAUNCHES != launches0:
         raise SystemExit("attn='gather' launched the kernel")
-    same, first_div = 0, None
-    for a, g in zip(reqs, reqs_g):
-        if a.tokens == g.tokens:
-            same += 1
-        elif first_div is None:
-            k = next(i for i, (x, y) in enumerate(zip(a.tokens, g.tokens)) if x != y)
-            first_div = {"request": a.id, "token": k, "paged": a.tokens[k],
-                         "gather": g.tokens[k]}
+    def compare_streams(reqs_a, reqs_b):
+        """(streams equal, the first divergence {request, token, a, b})."""
+        same, first_div = 0, None
+        for a, g in zip(reqs_a, reqs_b):
+            if a.tokens == g.tokens:
+                same += 1
+            elif first_div is None:
+                k = next(i for i, (x, y) in enumerate(zip(a.tokens, g.tokens)) if x != y)
+                first_div = {"request": a.id, "token": k, "a": a.tokens[k], "b": g.tokens[k]}
+        return same, first_div
 
-    # both programs on identical inputs: a prefill chunk of every lane,
-    # then one decode step; next-token distributions compared
-    toks = np.stack([r.prompt[:CHUNK] for r in reqs[:B]]).astype(np.int32)
-    bt = (1 + np.arange(B * MB, dtype=np.int32)).reshape(B, MB)
-    start = np.zeros(B, np.int32)
-    n_valid = np.full(B, CHUNK, np.int32)
-    probs, nxts = [], []
-    for e in (eng, eng_g):
-        nxt, p = e._prefill(*e._to_device("prefill", toks, start, n_valid, bt))
-        nxt2, p2 = e._decode(*e._to_device("decode", nxt.cpu().numpy(), n_valid, bt))
-        probs.append(torch.cat([p, p2]))
-        nxts.append(torch.cat([nxt, nxt2]))
-    torch.cuda.synchronize()
-    prob_err = float((probs[0] - probs[1]).abs().max())
-    prob_rel = prob_err / float(probs[1].abs().max())
+    same, first_div = compare_streams(reqs, reqs_g)
+
+    def programs_agree(engines):
+        """Both engines' programs on identical inputs: a prefill chunk of
+        every lane, then one decode step; next-token distributions
+        compared."""
+        toks = np.stack([r.prompt[:CHUNK] for r in synthetic_requests(spec)[:B]])
+        toks = toks.astype(np.int32)
+        bt = (1 + np.arange(B * MB, dtype=np.int32)).reshape(B, MB)
+        start = np.zeros(B, np.int32)
+        n_valid = np.full(B, CHUNK, np.int32)
+        probs, nxts = [], []
+        for e in engines:
+            nxt, p = e._prefill(*e._to_device("prefill", toks, start, n_valid, bt))
+            nxt2, p2 = e._decode(*e._to_device("decode", nxt.cpu().numpy(), n_valid, bt))
+            probs.append(torch.cat([p, p2]))
+            nxts.append(torch.cat([nxt, nxt2]))
+        torch.cuda.synchronize()
+        prob_err = float((probs[0] - probs[1]).abs().max())
+        return {"program_probs_max_abs_err": prob_err,
+                "program_probs_rel_err": prob_err / float(probs[1].abs().max()),
+                "program_argmax_agree": bool(torch.equal(nxts[0], nxts[1]))}
+
+    agree = programs_agree((eng, eng_g))
     emit({"phase": "serve_gather", "tok_s": rep_g.tok_s, "wall_s": rep_g.wall_s,
           "host_syncs": rep_g.host_syncs, "windows": rep_g.windows,
           "streams_identical": same, "requests": len(reqs), "first_divergence": first_div,
-          "program_probs_max_abs_err": prob_err, "program_probs_rel_err": prob_rel,
-          "program_argmax_agree": bool(torch.equal(nxts[0], nxts[1])), "card": card})
-    if not prob_rel <= 1e-3:
-        raise SystemExit(f"paged and gather programs disagree: rel err {prob_rel}")
+          **agree, "card": card})
+    if not agree["program_probs_rel_err"] <= 1e-3:
+        raise SystemExit(f"paged and gather programs disagree: {agree}")
 
     # --- profile: where a serve run's time goes (a separate run) -------------
     prof_spec = TrafficSpec(n_requests=8, seed=SEED + 1, prompt_len=(128, 512),
@@ -362,6 +483,166 @@ def main() -> int:
     emit({"phase": "profile", "traffic": prof_spec.identity, **prof,
           "windows": prof_rep.windows, "decode_steps": prof_rep.decode_steps,
           "prefill_dispatches": prof_rep.prefill_dispatches, "card": card})
+    del eng, eng_g
+    torch.cuda.empty_cache()
+
+    # --- 3q. serve_quant / serve_spec / serve_w8: the quantized arms ---------
+    def serve_arm(phase, record_margins=False, **arm):
+        """Serve ``spec``'s requests on a fresh engine with ``arm``; every
+        kernel count set to 0 just before the run and read just after.
+        Fails unless every request finished with its full budget and the
+        window held one host sync."""
+        e = ServeEngine(model, **engine_kw, **arm)
+        rs = synthetic_requests(spec)
+        margins = record_margins and margin_recorder(e)
+        zero_counts()
+        torch.cuda.synchronize()
+        r = e.run(rs)
+        launches, by_pool = pa.LAUNCHES, dict(pa.LAUNCHES_BY_POOL)
+        full = all(len(q.tokens) == q.max_new_tokens and all(0 <= t < VOCAB for t in q.tokens)
+                   for q in rs)
+        line = {"phase": phase, "model": "GPT2_SMALL", "layers": layers, "dtype": "float32",
+                "traffic": spec.identity, "attn_kernel": e.attn_kernel,
+                "kv_dtype": e.kv_dtype, "weight_dtype": e.weight_dtype,
+                "kv_bytes_per_token": e.kv.bytes_per_token,
+                "tok_s": r.tok_s, "wall_s": r.wall_s, "new_tokens": r.new_tokens,
+                "ttft_p50_ms": r.ttft_p50_ms, "tpot_p50_ms": r.tpot_p50_ms,
+                "tpot_p99_ms": r.tpot_p99_ms, "host_syncs": r.host_syncs, "windows": r.windows,
+                "decode_steps": r.decode_steps, "prefill_dispatches": r.prefill_dispatches,
+                "requests_finished": r.requests_finished, "full_budgets": full,
+                "paged_attention_launches": launches, "launches_by_pool": by_pool}
+        if not (full and r.requests_finished == spec.n_requests):
+            raise SystemExit(f"{phase}: not every request finished with its full budget")
+        if r.host_syncs != r.windows:
+            raise SystemExit(f"{phase}: host_syncs {r.host_syncs} != windows {r.windows}")
+        return e, rs, r, line, (margins or None)
+
+    def margin_recorder(e):
+        """Keep, for each decode and prefill call of ``e``, the relative
+        top-2 margin (p1 - p2) / p1 of every lane's next-token
+        distribution (on the device, read after the run) with the lane's
+        request and the index of the token it yields."""
+        calls = []
+        decode, prefill = e._decode, e._prefill
+
+        def top2(probs):
+            t = probs.topk(2, dim=-1).values
+            return (t[:, 0] - t[:, 1]) / t[:, 0]
+
+        def lanes():
+            return {s: (r.id, r.prompt_len) for s, r in e.sched.active.items()}
+
+        def rec_decode(tok, pos, bt):
+            nxt, probs = decode(tok, pos, bt)
+            calls.append((lanes(), pos + 1, top2(probs)))  # the token at pos + 1
+            return nxt, probs
+
+        def rec_prefill(toks, start, n_valid, bt):
+            nxt, probs = prefill(toks, start, n_valid, bt)
+            calls.append((lanes(), start + n_valid, top2(probs)))
+            return nxt, probs
+
+        e._decode, e._prefill = rec_decode, rec_prefill
+        return calls
+
+    def margins_by_request(calls):
+        """{request id: {token index: relative top-2 margin}}."""
+        out = {}
+        for lane_req, at, m in calls:
+            at, m = at.cpu().numpy(), m.cpu().numpy()
+            for s, (rid, plen) in lane_req.items():
+                out.setdefault(rid, {})[int(at[s]) - plen] = float(m[s])
+        return out
+
+    quant_lines, quant_launches, quant_reqs = {}, {}, {}
+    for kv_dtype in ("int8", "fp8"):
+        e_q, rs_q, r_q, line, _ = serve_arm("serve_quant", kv_dtype=kv_dtype)
+        expect = layers * (r_q.decode_steps + r_q.prefill_dispatches)
+        pool_name = str(e_q.kv.dtype).replace("torch.", "")
+        line["expected_launches"] = expect
+        if not (line["paged_attention_launches"] == expect > 0
+                and line["launches_by_pool"] == {pool_name: expect}):
+            raise SystemExit(f"serve_quant {kv_dtype}: launches {line['launches_by_pool']} "
+                             f"!= {{{pool_name!r}: {expect}}}")
+        e_g, rs_g, r_g, _, _ = serve_arm("serve_quant_gather", attn="gather", kv_dtype=kv_dtype)
+        if pa.LAUNCHES:
+            raise SystemExit(f"serve_quant {kv_dtype}: attn='gather' launched the kernel")
+        same_q, div_q = compare_streams(rs_q, rs_g)
+        agree_q = programs_agree((e_q, e_g))
+        line.update({"gather_tok_s": r_g.tok_s, "streams_identical_to_gather": same_q,
+                     "first_divergence_from_gather": div_q, **agree_q,
+                     "program_probs_rel_tol": QUANT_PROB_TOL, "card": card})
+        emit(line)
+        if not agree_q["program_probs_rel_err"] <= QUANT_PROB_TOL:
+            raise SystemExit(f"serve_quant {kv_dtype}: paged and gather programs disagree: "
+                             f"{agree_q}")
+        quant_lines[kv_dtype], quant_launches[kv_dtype] = line, expect
+        quant_reqs[kv_dtype] = rs_q
+        del e_q, e_g
+        torch.cuda.empty_cache()
+
+    # speculative decoding over int8 pools, against the plain int8 greedy
+    # streams (a second plain run, its margins recorded)
+    e_p, rs_p, _, _, calls = serve_arm("serve_spec_reference", record_margins=True,
+                                       kv_dtype="int8")
+    margins = margins_by_request(calls)
+    del e_p
+    e_s, rs_s, r_s, line, _ = serve_arm("serve_spec", kv_dtype="int8", spec_k=SPEC_K,
+                                        spec_draft_layers=SPEC_DRAFT)
+    W = SPEC_K + 1
+    macros = r_s.decode_steps // W
+    expect = layers * (r_s.prefill_dispatches + macros) + SPEC_DRAFT * SPEC_K * macros
+    diverged = []
+    for a, p_ in zip(rs_s, rs_p):
+        k = next((i for i, (x, y) in enumerate(zip(a.tokens, p_.tokens)) if x != y), None)
+        if k is None:
+            continue
+        m = margins.get(p_.id, {})
+        small = min((i for i in range(k + 1) if m.get(i, 1.0) < SPEC_MARGIN), default=None)
+        diverged.append({"request": a.id, "token": k, "margin_there": m.get(k),
+                         "first_small_margin_token": small,
+                         "min_margin_up_to_there": min(m.get(i, 1.0) for i in range(k + 1))})
+    ok_streams = all(d["first_small_margin_token"] is not None for d in diverged)
+    line.update({"spec_k": r_s.spec_k, "spec_draft_layers": r_s.spec_draft_layers,
+                 "spec_accept_rate": r_s.spec_accept_rate, "spec_drafted": r_s.spec_drafted,
+                 "spec_accepted": r_s.spec_accepted, "macros": macros,
+                 "expected_launches": expect,
+                 "streams_identical_to_plain_int8": len(rs_s) - len(diverged),
+                 "diverged": diverged, "margin_threshold_rel": SPEC_MARGIN,
+                 "reference_streams_equal_to_serve_quant_int8": compare_streams(
+                     rs_p, quant_reqs["int8"])[0],
+                 "card": card})
+    emit(line)
+    if not (line["paged_attention_launches"] == expect > 0
+            and line["launches_by_pool"] == {"int8": expect}):
+        raise SystemExit(f"serve_spec: launches {line['launches_by_pool']} != {expect}")
+    if not ok_streams:
+        raise SystemExit(f"serve_spec: streams left the plain int8 greedy stream before a "
+                         f"token whose top-2 margin is under {SPEC_MARGIN}: {diverged}")
+    spec_launches = expect
+    del e_s
+    torch.cuda.empty_cache()
+
+    # where an int8 serve run's time goes: the profile phase's traffic
+    e_pq = ServeEngine(model, kv_dtype="int8", **engine_kw)
+    profq = device_profile(lambda: e_pq.run(synthetic_requests(prof_spec)))
+    profq_rep = profq.pop("result")
+    emit({"phase": "profile_quant", "kv_dtype": "int8", "traffic": prof_spec.identity, **profq,
+          "windows": profq_rep.windows, "decode_steps": profq_rep.decode_steps,
+          "prefill_dispatches": profq_rep.prefill_dispatches, "card": card})
+    del e_pq
+
+    e_w, rs_w, r_w, line, _ = serve_arm("serve_w8", kv_dtype="int8", weight_dtype="int8")
+    expect = layers * (r_w.decode_steps + r_w.prefill_dispatches)
+    same_w, _ = compare_streams(rs_w, rs_p)
+    line.update({"expected_launches": expect, "fp32_tok_s": serve["tok_s"],
+                 "int8_kv_tok_s": quant_lines["int8"]["tok_s"],
+                 "streams_identical_to_int8_kv": same_w, "card": card})
+    emit(line)
+    if line["paged_attention_launches"] != expect:
+        raise SystemExit(f"serve_w8: launches {line['paged_attention_launches']} != {expect}")
+    del e_w
+    torch.cuda.empty_cache()
 
     # --- 4. flash_attention: kernels against plain, then timing --------------
     def qkv(shape_q, shape_k, dtype, seed):
@@ -491,11 +772,6 @@ def main() -> int:
           "card": card})
 
     # --- 5. train: the training slice's main path ----------------------------
-    def zero_counts():
-        pa.LAUNCHES = 0
-        for kind in fa.LAUNCHES:
-            fa.LAUNCHES[kind] = 0
-
     layers = BERT_BASE["num_layers"]
     train_cfg = dict(batch=TRAIN_B, seq=TRAIN_S, num_classes=TRAIN_CLASSES, lr=TRAIN_LR,
                      seed=SEED, device=dev, **BERT_BASE)
@@ -588,6 +864,23 @@ def main() -> int:
         if kind == "fwd":
             entry["also_replaces"] = tpu + "flash_attention.py:98"
         kernels.append(entry)
+    def timed(t):
+        return {k: t[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
+
+    kernels.append({
+        "name": "paged_attention_quant",
+        "route": "cuda",
+        "source": src + "paged_attention.cu",
+        "replaces": tpu + "paged_attention.py:158",
+        "also_replaces": tpu + "paged_attention.py:215",
+        "launches": quant_launches["int8"],
+        "max_abs_err": quant_worst["int8"],
+        **timed(t_quant["int8"]["decode"]),
+        "prefill": timed(t_quant["int8"]["prefill"]),
+        "fp8": {"launches": quant_launches["fp8"], "max_abs_err": quant_worst["fp8"],
+                **timed(t_quant["fp8"]["decode"]), "prefill": timed(t_quant["fp8"]["prefill"])},
+        "spec_launches": spec_launches,
+    })
     emit({"kernels": kernels})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

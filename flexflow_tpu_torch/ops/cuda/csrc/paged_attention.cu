@@ -1,14 +1,18 @@
 // Paged attention over a block-table-indexed K/V pool, for sm_90a.
 //
 // Replaces the TPU kernel flexflow_tpu/ops/pallas/paged_attention.py:_kernel
-// (launched by _paged_call), for float32 and bfloat16 pools.  It computes,
-// for every lane b, head h and query row g (row g of lane b sits at position
+// (launched by _paged_call), for float32 and bfloat16 pools and, with
+// quantized=True there, for int8 and float8 e4m3 pools.  It computes, for
+// every lane b, head h and query row g (row g of lane b sits at position
 // positions[b] + g):
 //
 //   out[b, g, h] = softmax_k( (q[b, g, h] . K[k]) * scale ) @ V,
 //   over the lane's positions k <= positions[b] + g,
 //
 // where position k lives in page block_tables[b, k / BS] at offset k % BS.
+// A quantized pool stores K[k] = sk[k] * Kq[k] and V[k] = sv[k] * Vq[k]:
+// 1-byte elements and one float32 scale per position, the scale rows
+// sk, sv (num_blocks, BS) indexed by the same physical block as the page.
 //
 // What bounds it on the card: the bytes of the live K/V pages.  A decode
 // step (G = 1) does 4*D flops per K/V position it reads (2*D*4 bytes in
@@ -33,11 +37,26 @@
 // k_pos > row_pos; the warp then folds the page into its rows' carries.
 // wgmma, TMA and split-K over pages are later work.
 //
+// Quantized pools (TKV int8_t or __nv_fp8_e4m3): a page's two scale rows
+// ride the page's ring slot, fetched through the same block-table entry
+// with 4-byte cp.async copies (any BS).  Each stored element widens exactly
+// to float32 (int8 by conversion, e4m3 through the f16 conversion), and the
+// scales are folded in rather than multiplied into every element: the score
+// is s_k = (q . Kq[k]) * sk[k] * scale, and the probability that weights
+// Vq[k] is p_k * sv[k] (the running sum l takes p_k itself).  That is the
+// JAX kernel's function (dequantize, then the same mul+sum) with one
+// multiply per key instead of one per element; the results differ from
+// the plain version by float32 rounding only.  The 1-byte pages are 4x
+// fewer bytes than float32 ones, but the per-element dependent chain of
+// shared-memory reads stays, so the kernel stays far from its bound.
+//
 // Plain C interface (built by nvcc into a shared library and loaded with
 // ctypes): ff_paged_attention returns the cudaGetLastError() code after the
 // launch, 0 on success.
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
+#include <cuda_fp8.h>
 #include <cuda_runtime.h>
 
 #include <cfloat>
@@ -53,6 +72,11 @@ constexpr int kStages = 4;       // pages in flight per block
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ float to_f32(int8_t x) { return static_cast<float>(x); }
+__device__ __forceinline__ float to_f32(__nv_fp8_e4m3 x) {
+  // e4m3 -> f16 is exact, and so is f16 -> f32
+  return __half2float(__half(__nv_cvt_fp8_to_halfraw(x.__x, __NV_E4M3)));
+}
 __device__ __forceinline__ void store(float* p, float x) { *p = x; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float x) { *p = __float2bfloat16(x); }
 
@@ -73,18 +97,34 @@ __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem));
 }
+// 4-byte copy, for the scale rows (a row of BS floats need not be 16-byte aligned)
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(gmem));
+}
 __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
 // wait until at most kStages - 1 committed groups are still in flight
 __device__ __forceinline__ void cp_async_wait_page() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(kStages - 1));
 }
 
+template <typename TKV>
+__host__ __device__ constexpr bool is_quantized() {
+  return sizeof(TKV) == 1;
+}
+
 template <typename TQ, typename TKV>
 __global__ void __launch_bounds__(32 * kWarps)
 paged_attention_kernel(const TQ* __restrict__ q, const TKV* __restrict__ pool_k,
-                       const TKV* __restrict__ pool_v, const int* __restrict__ positions,
+                       const TKV* __restrict__ pool_v, const float* __restrict__ scale_k,
+                       const float* __restrict__ scale_v, const int* __restrict__ positions,
                        const int* __restrict__ block_tables, TQ* __restrict__ out, int G, int H,
                        int D, int BS, int MB, int rows_per_warp, float scale) {
+  constexpr bool kQuant = is_quantized<TKV>();
+  // the score loop's start element advances by kRot per lane; for 1-byte
+  // elements that is one 4-byte word, so neighbouring lanes read different
+  // shared-memory banks (at most two lanes share one)
+  constexpr int kRot = kQuant ? 4 : 1;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int rows_per_block = kWarps * rows_per_warp;
   const int b = blockIdx.x;
@@ -97,7 +137,11 @@ paged_attention_kernel(const TQ* __restrict__ q, const TKV* __restrict__ pool_k,
 
   TKV* kbuf = reinterpret_cast<TKV*>(smem_raw);          // [kStages][BS][D]
   TKV* vbuf = kbuf + kStages * page_elems;                // [kStages][BS][D]
-  float* qs = reinterpret_cast<float*>(vbuf + kStages * page_elems);  // [rows_per_block][D]
+  // the pages end on a 16-byte boundary (BS * D * sizeof(TKV) is a multiple
+  // of 16, checked by the wrapper); quantized pools keep their scale rows next
+  float* skbuf = reinterpret_cast<float*>(vbuf + kStages * page_elems);  // [kStages][BS]
+  float* svbuf = skbuf + (kQuant ? kStages * BS : 0);                    // [kStages][BS]
+  float* qs = svbuf + (kQuant ? kStages * BS : 0);        // [rows_per_block][D]
   float* pw = qs + rows_per_block * D + warp * BS;        // this warp's [BS] scores
 
   const int pos0 = positions[b];
@@ -118,6 +162,14 @@ paged_attention_kernel(const TQ* __restrict__ q, const TKV* __restrict__ pool_k,
       for (int c = threadIdx.x; c < chunks; c += blockDim.x) {
         cp_async16(sk + 16 * c, gk + 16 * c);
         cp_async16(sv + 16 * c, gv + 16 * c);
+      }
+      if constexpr (kQuant) {
+        // the page's scale rows: the same physical block, the same group
+        const size_t row = (size_t)table[page] * BS;
+        for (int j = threadIdx.x; j < BS; j += blockDim.x) {
+          cp_async4(skbuf + slot * BS + j, scale_k + row + j);
+          cp_async4(svbuf + slot * BS + j, scale_v + row + j);
+        }
       }
     }
     cp_async_commit();
@@ -146,6 +198,8 @@ paged_attention_kernel(const TQ* __restrict__ q, const TKV* __restrict__ pool_k,
     __syncthreads();
     const TKV* ks = kbuf + (page % kStages) * page_elems;
     const TKV* vs = vbuf + (page % kStages) * page_elems;
+    const float* sks = skbuf + (page % kStages) * BS;  // read only when kQuant
+    const float* svs = svbuf + (page % kStages) * BS;
 
 #pragma unroll
     for (int r = 0; r < kRowsPerWarp; ++r) {
@@ -161,11 +215,12 @@ paged_attention_kernel(const TQ* __restrict__ q, const TKV* __restrict__ pool_k,
         if (j < BS) {
           const TKV* kj = ks + j * D;
           float dot = 0.f;
-          int d = j % D;  // rotated start: neighbouring lanes read different banks
+          int d = (j * kRot) % D;  // rotated start: neighbouring lanes read different banks
           for (int t = 0; t < D; ++t) {
             dot = fmaf(qr[d], to_f32(kj[d]), dot);
             d = (d + 1 == D) ? 0 : d + 1;
           }
+          if constexpr (kQuant) dot *= sks[j];  // the key's scale, folded in
           s = (page * BS + j <= row_pos) ? dot * scale : -FLT_MAX;
           pw[j] = s;
         }
@@ -176,7 +231,7 @@ paged_attention_kernel(const TQ* __restrict__ q, const TKV* __restrict__ pool_k,
       float psum = 0.f;
       for (int j = lane; j < BS; j += 32) {
         const float p = expf(pw[j] - m_new);
-        pw[j] = p;
+        pw[j] = kQuant ? p * svs[j] : p;  // V's scale folded into its weight
         psum += p;
       }
       psum = warp_sum(psum);
@@ -211,17 +266,21 @@ paged_attention_kernel(const TQ* __restrict__ q, const TKV* __restrict__ pool_k,
 }
 
 template <typename TQ, typename TKV>
-cudaError_t launch(const void* q, const void* pool_k, const void* pool_v, const void* positions,
-                   const void* block_tables, void* out, int B, int G, int H, int D, int BS,
-                   int MB, float scale, cudaStream_t stream) {
+cudaError_t launch(const void* q, const void* pool_k, const void* pool_v, const void* scale_k,
+                   const void* scale_v, const void* positions, const void* block_tables,
+                   void* out, int B, int G, int H, int D, int BS, int MB, float scale,
+                   cudaStream_t stream) {
   const int rpw_need = (G + kWarps - 1) / kWarps;
   const int rows_per_warp = rpw_need < kRowsPerWarp ? rpw_need : kRowsPerWarp;
   const int rows_per_block = kWarps * rows_per_warp;
-  // a ring of kStages K and V pages, the block's float32 query rows and one
-  // float32 score row per warp; past the card's limit the attribute call
-  // below fails and its error goes back to the caller
+  // a ring of kStages K and V pages (with their scale rows when quantized),
+  // the block's float32 query rows and one float32 score row per warp; past
+  // the card's limit the attribute call below fails and its error goes back
+  // to the caller
+  const size_t scale_rows = is_quantized<TKV>() ? 2 * kStages * (size_t)BS : 0;
   const size_t smem = sizeof(TKV) * 2 * kStages * (size_t)BS * D +
-                      sizeof(float) * ((size_t)rows_per_block * D + (size_t)kWarps * BS);
+                      sizeof(float) * (scale_rows + (size_t)rows_per_block * D +
+                                       (size_t)kWarps * BS);
   auto kernel = paged_attention_kernel<TQ, TKV>;
   if (smem > 48 * 1024) {
     cudaError_t err =
@@ -234,7 +293,8 @@ cudaError_t launch(const void* q, const void* pool_k, const void* pool_v, const 
   dim3 grid(B, H, (G + rows_per_block - 1) / rows_per_block);
   kernel<<<grid, 32 * kWarps, smem, stream>>>(
       static_cast<const TQ*>(q), static_cast<const TKV*>(pool_k),
-      static_cast<const TKV*>(pool_v), static_cast<const int*>(positions),
+      static_cast<const TKV*>(pool_v), static_cast<const float*>(scale_k),
+      static_cast<const float*>(scale_v), static_cast<const int*>(positions),
       static_cast<const int*>(block_tables), static_cast<TQ*>(out), G, H, D, BS, MB,
       rows_per_warp, scale);
   return cudaGetLastError();
@@ -242,26 +302,39 @@ cudaError_t launch(const void* q, const void* pool_k, const void* pool_v, const 
 
 }  // namespace
 
-// q and the pools in the same dtype, or a float32 q over a bfloat16 pool
-// (a float32 engine with kv_dtype="bf16"); a bfloat16 q over a float32
-// pool is refused by the wrapper.
+// Pool formats: 0 float32, 1 bfloat16, 2 int8, 3 float8 e4m3 (the last two
+// with their scale rows, null otherwise).  q is float32 or bfloat16 over any
+// of them, except a bfloat16 q over a float32 pool, which the wrapper
+// refuses as well.
 extern "C" int ff_paged_attention(const void* q, const void* pool_k, const void* pool_v,
+                                  const void* scale_k, const void* scale_v,
                                   const void* positions, const void* block_tables, void* out,
                                   int B, int G, int H, int D, int BS, int MB, float scale,
-                                  int q_bf16, int kv_bf16, void* stream) {
+                                  int q_bf16, int kv_format, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (q_bf16 && !kv_bf16) return static_cast<int>(cudaErrorInvalidValue);
+  const bool quant = kv_format == 2 || kv_format == 3;
+  if (kv_format < 0 || kv_format > 3 || (q_bf16 && kv_format == 0) ||
+      quant != (scale_k != nullptr && scale_v != nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+#define FF_LAUNCH(TQ, TKV)                                                                  \
+  launch<TQ, TKV>(q, pool_k, pool_v, scale_k, scale_v, positions, block_tables, out, B, G, H, \
+                  D, BS, MB, scale, s)
   cudaError_t err;
   if (q_bf16) {
-    err = launch<__nv_bfloat16, __nv_bfloat16>(q, pool_k, pool_v, positions, block_tables, out,
-                                               B, G, H, D, BS, MB, scale, s);
-  } else if (kv_bf16) {
-    err = launch<float, __nv_bfloat16>(q, pool_k, pool_v, positions, block_tables, out, B, G,
-                                       H, D, BS, MB, scale, s);
+    switch (kv_format) {
+      case 1: err = FF_LAUNCH(__nv_bfloat16, __nv_bfloat16); break;
+      case 2: err = FF_LAUNCH(__nv_bfloat16, int8_t); break;
+      default: err = FF_LAUNCH(__nv_bfloat16, __nv_fp8_e4m3); break;
+    }
   } else {
-    err = launch<float, float>(q, pool_k, pool_v, positions, block_tables, out, B, G, H, D, BS,
-                               MB, scale, s);
+    switch (kv_format) {
+      case 0: err = FF_LAUNCH(float, float); break;
+      case 1: err = FF_LAUNCH(float, __nv_bfloat16); break;
+      case 2: err = FF_LAUNCH(float, int8_t); break;
+      default: err = FF_LAUNCH(float, __nv_fp8_e4m3); break;
+    }
   }
+#undef FF_LAUNCH
   return static_cast<int>(err);
 }
 

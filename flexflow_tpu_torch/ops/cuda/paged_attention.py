@@ -11,12 +11,15 @@ allocator's trash block.  Row ``g`` attends positions
 
 * :func:`paged_attention` is the wrapper.  On CUDA tensors it launches
   the hand-written kernel ``csrc/paged_attention.cu`` (which replaces
-  the TPU kernel ``_kernel`` of the JAX module) and adds one to
-  :data:`LAUNCHES`; a build or launch failure raises.  On CPU tensors
+  the TPU kernel ``_kernel`` of the JAX module, full-precision and
+  quantized) and adds one to :data:`LAUNCHES` and to
+  :data:`LAUNCHES_BY_POOL` under the pool's dtype; a build or launch
+  failure raises.  On CPU tensors
   it takes the plain version.  It never falls back from CUDA to the
   plain version.
 * :func:`paged_attention_plain` is the plain PyTorch version: gather
-  ``pool[block_tables]`` to (B, H, SV, D), mask ``k_pos <= pos0 + g``,
+  ``pool[block_tables]`` to (B, H, SV, D) (times the gathered scale rows
+  when quantized), mask ``k_pos <= pos0 + g``,
   mul+sum score contraction, float32 softmax.  It is the function the
   engine's ``attend`` computes (``attn="gather"``) and what the CPU
   tests run.
@@ -31,6 +34,7 @@ import torch
 
 __all__ = [
     "LAUNCHES",
+    "LAUNCHES_BY_POOL",
     "MAX_HEAD_DIM",
     "paged_attention",
     "paged_attention_plain",
@@ -42,9 +46,15 @@ __all__ = [
 # kernel launches through paged_attention(); read and reset by callers
 # that need to show which path a run took
 LAUNCHES = 0
+# the same launches by pool dtype name ("float32", "bfloat16", "int8",
+# "float8_e4m3fn")
+LAUNCHES_BY_POOL: dict = {}
 
 MAX_HEAD_DIM = 256  # the kernel keeps D / 32 accumulators per lane, at most 8
 _FLOATS = (torch.float32, torch.bfloat16)
+_QUANT = (torch.int8, torch.float8_e4m3fn)
+# the kernel's pool-format codes (csrc/paged_attention.cu)
+_POOL_FORMAT = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2, torch.float8_e4m3fn: 3}
 _lib = None
 
 
@@ -67,8 +77,35 @@ def resolve_serve_attn(mode: str, device: torch.device) -> str:
     raise ValueError(f"--serve-attn {mode!r}: expected auto | gather | paged")
 
 
-def paged_attention_plain(q, pool_k, pool_v, positions, block_tables, scale=None):
+def _check_scales(pool_k, pool_v, scale_k, scale_v) -> None:
+    """Scale rows come with a quantized pool and only with one."""
+    if (scale_k is None) != (scale_v is None):
+        raise ValueError("paged_attention: pass both scale_k and scale_v, or neither")
+    quant = pool_k.dtype in _QUANT or pool_v.dtype in _QUANT
+    if quant and scale_k is None:
+        raise ValueError(
+            f"paged_attention: a {pool_k.dtype} pool needs its scale_k/scale_v rows")
+    if scale_k is not None and not quant:
+        raise ValueError(
+            f"paged_attention: scale rows given with a {pool_k.dtype} pool; they "
+            f"belong to int8 or float8_e4m3fn pools")
+
+
+def _pages(pool, bt, scales):
+    """``pool[bt]`` as float32 (B, MB, H, BS, D), dequantized as the pool's
+    rule does when ``scales`` (N, BS) are given."""
+    if scales is None:
+        return pool[bt].float()
+    # float8 pages are gathered as their bytes (serve/kvcache.py pool_bits)
+    fp8 = pool.dtype == torch.float8_e4m3fn
+    pages = pool.view(torch.uint8)[bt].view(pool.dtype) if fp8 else pool[bt]
+    return pages.float() * scales[bt][:, :, None, :, None]
+
+
+def paged_attention_plain(q, pool_k, pool_v, positions, block_tables, scale=None,
+                          scale_k=None, scale_v=None):
     """The plain PyTorch version (see the module docstring)."""
+    _check_scales(pool_k, pool_v, scale_k, scale_v)
     B, G, H, D = q.shape
     BS = pool_k.shape[2]
     MB = block_tables.shape[1]
@@ -76,8 +113,8 @@ def paged_attention_plain(q, pool_k, pool_v, positions, block_tables, scale=None
     if scale is None:
         scale = 1.0 / math.sqrt(D)
     bt = block_tables.long()
-    keys = pool_k[bt].float().permute(0, 2, 1, 3, 4).reshape(B, H, SV, D)
-    vals = pool_v[bt].float().permute(0, 2, 1, 3, 4).reshape(B, H, SV, D)
+    keys = _pages(pool_k, bt, scale_k).permute(0, 2, 1, 3, 4).reshape(B, H, SV, D)
+    vals = _pages(pool_v, bt, scale_v).permute(0, 2, 1, 3, 4).reshape(B, H, SV, D)
     scores = (q.float()[..., None, :] * keys[:, None]).sum(-1) * scale  # (B, G, H, SV)
     k_pos = torch.arange(SV, device=q.device)
     row_pos = positions.long()[:, None] + torch.arange(G, device=q.device)  # (B, G)
@@ -89,16 +126,21 @@ def paged_attention_plain(q, pool_k, pool_v, positions, block_tables, scale=None
     return (w[..., None] * vals[:, None]).sum(-2).to(q.dtype)
 
 
-def _check(q, pool_k, pool_v, positions, block_tables) -> None:
+def _check(q, pool_k, pool_v, positions, block_tables, scale_k=None, scale_v=None) -> None:
+    _check_scales(pool_k, pool_v, scale_k, scale_v)
     dev = q.device
-    for name, t in (("pool_k", pool_k), ("pool_v", pool_v),
-                    ("positions", positions), ("block_tables", block_tables)):
+    tensors = [("q", q), ("pool_k", pool_k), ("pool_v", pool_v),
+               ("positions", positions), ("block_tables", block_tables)]
+    if scale_k is not None:
+        tensors += [("scale_k", scale_k), ("scale_v", scale_v)]
+    for name, t in tensors:
         if t.device != dev:
             raise ValueError(f"paged_attention: {name} is on {t.device}, q on {dev}")
-    if q.dtype not in _FLOATS or pool_k.dtype not in _FLOATS:
+    if q.dtype not in _FLOATS or pool_k.dtype not in _FLOATS + _QUANT:
         raise TypeError(
             f"paged_attention: q {q.dtype} / pools {pool_k.dtype}: the kernel "
-            f"takes float32 or bfloat16"
+            f"takes a float32 or bfloat16 q over float32, bfloat16, int8 or "
+            f"float8_e4m3fn pools"
         )
     if pool_v.dtype != pool_k.dtype:
         raise TypeError(f"paged_attention: pool_k {pool_k.dtype} != pool_v {pool_v.dtype}")
@@ -122,6 +164,12 @@ def _check(q, pool_k, pool_v, positions, block_tables) -> None:
         raise ValueError("paged_attention: positions/block_tables lane count != q's")
     if min(B, G, H, D, N, BS, block_tables.shape[1]) < 1:
         raise ValueError("paged_attention: empty dimension")
+    if scale_k is not None:
+        for name, t in (("scale_k", scale_k), ("scale_v", scale_v)):
+            if t.dtype != torch.float32 or tuple(t.shape) != (N, BS):
+                raise ValueError(
+                    f"paged_attention: {name} must be float32 of shape ({N}, {BS}) "
+                    f"(one row per pool block), not {t.dtype} {tuple(t.shape)}")
     if D > MAX_HEAD_DIM:
         raise ValueError(f"paged_attention: head_dim {D} > {MAX_HEAD_DIM}")
     if H > 65535:
@@ -131,8 +179,7 @@ def _check(q, pool_k, pool_v, positions, block_tables) -> None:
             f"paged_attention: head_dim {D} x {pool_k.element_size()} bytes is not a "
             f"multiple of 16 (the kernel copies pages in 16-byte pieces)"
         )
-    for name, t in (("q", q), ("pool_k", pool_k), ("pool_v", pool_v),
-                    ("positions", positions), ("block_tables", block_tables)):
+    for name, t in tensors:
         if not t.is_contiguous():
             raise ValueError(f"paged_attention: {name} must be contiguous")
     if pool_k.data_ptr() % 16 or pool_v.data_ptr() % 16:
@@ -146,7 +193,7 @@ def _library():
 
         lib = load("paged_attention")
         lib.ff_paged_attention.argtypes = (
-            [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_float]
+            [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [ctypes.c_float]
             + [ctypes.c_int] * 2 + [ctypes.c_void_p]
         )
         lib.ff_paged_attention.restype = ctypes.c_int
@@ -156,22 +203,26 @@ def _library():
     return _lib
 
 
-def paged_attention(q, pool_k, pool_v, positions, block_tables, scale=None):
+def paged_attention(q, pool_k, pool_v, positions, block_tables, scale=None,
+                    scale_k=None, scale_v=None):
     """Attention of ``q``'s G rows per lane over the paged pool (see the
-    module docstring).  ``scale`` defaults to ``1/sqrt(D)``.  Returns
-    (B, G, H, D) in ``q.dtype``."""
+    module docstring).  ``scale`` defaults to ``1/sqrt(D)``; ``scale_k``
+    and ``scale_v`` are the layer's scale rows of a quantized pool (both
+    or neither).  Returns (B, G, H, D) in ``q.dtype``."""
     global LAUNCHES
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
-    kinds = {t.device.type for t in (q, pool_k, pool_v, positions, block_tables)}
+    tensors = (q, pool_k, pool_v, positions, block_tables, scale_k, scale_v)
+    kinds = {t.device.type for t in tensors if t is not None}
     if kinds == {"cpu"}:
-        return paged_attention_plain(q, pool_k, pool_v, positions, block_tables, scale)
+        return paged_attention_plain(q, pool_k, pool_v, positions, block_tables, scale,
+                                     scale_k, scale_v)
     if kinds != {"cuda"}:
         raise ValueError(
             f"paged_attention: tensors on {sorted(kinds)}; expected all on one "
             f"CUDA device (kernel) or all on the CPU (plain version)"
         )
-    _check(q, pool_k, pool_v, positions, block_tables)
+    _check(q, pool_k, pool_v, positions, block_tables, scale_k, scale_v)
     lib = _library()
     B, G, H, D = q.shape
     BS = pool_k.shape[2]
@@ -181,27 +232,33 @@ def paged_attention(q, pool_k, pool_v, positions, block_tables, scale=None):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = lib.ff_paged_attention(
             q.data_ptr(), pool_k.data_ptr(), pool_v.data_ptr(),
+            None if scale_k is None else scale_k.data_ptr(),
+            None if scale_v is None else scale_v.data_ptr(),
             positions.data_ptr(), block_tables.data_ptr(), out.data_ptr(),
             B, G, H, D, BS, MB, float(scale),
-            int(q.dtype == torch.bfloat16), int(pool_k.dtype == torch.bfloat16),
+            int(q.dtype == torch.bfloat16), _POOL_FORMAT[pool_k.dtype],
             stream,
         )
     if rc != 0:
         msg = lib.ff_cuda_error_string(rc).decode(errors="replace")
         raise RuntimeError(f"paged_attention kernel launch failed: {msg} (cudaError {rc})")
     LAUNCHES += 1
+    name = str(pool_k.dtype).replace("torch.", "")
+    LAUNCHES_BY_POOL[name] = LAUNCHES_BY_POOL.get(name, 0) + 1
     return out
 
 
-def paged_decode_attention(q, pool_k, pool_v, positions, block_tables, scale=None):
+def paged_decode_attention(q, pool_k, pool_v, positions, block_tables, scale=None,
+                           scale_k=None, scale_v=None):
     """Decode (G=1) or any G consecutive rows per lane: :func:`paged_attention`."""
-    return paged_attention(q, pool_k, pool_v, positions, block_tables, scale)
+    return paged_attention(q, pool_k, pool_v, positions, block_tables, scale, scale_k, scale_v)
 
 
-def paged_prefill_attention(q, pool_k, pool_v, start, block_tables, scale=None):
+def paged_prefill_attention(q, pool_k, pool_v, start, block_tables, scale=None,
+                            scale_k=None, scale_v=None):
     """A prefill chunk: ``q`` is (B, P, H, D), row ``g`` of lane ``b`` at
     ``start[b] + g``.  The caller scatters the chunk's K/V into the pool
     first; idle lanes ride with ``start = 0`` and an all-zero table row
     (the trash block) and their rows are discarded.  The same kernel at
     G = P: :func:`paged_attention`."""
-    return paged_attention(q, pool_k, pool_v, start, block_tables, scale)
+    return paged_attention(q, pool_k, pool_v, start, block_tables, scale, scale_k, scale_v)

@@ -13,7 +13,10 @@ Defaults are smoke-sized; pass the model flags for a real width::
         --requests 16 --prompt-len 128:512 --max-new 32:64 \\
         --serve-slots 8 --metrics-out serve.jsonl
 
-``--device cpu`` runs the plain PyTorch path on the CPU.
+``--device cpu`` runs the plain PyTorch path on the CPU.  The quantized
+and speculative arms take the JAX driver's flags: ``--serve-kv-dtype
+fp32|bf16|int8|fp8``, ``--serve-weight-dtype fp32|int8``,
+``--serve-spec-k K`` and ``--serve-spec-draft-layers N``.
 """
 
 from __future__ import annotations
@@ -22,6 +25,8 @@ import argparse
 import json
 import sys
 from typing import List, Optional
+
+from flexflow_tpu_torch.serve.kvcache import KV_DTYPES
 
 __all__ = ["main"]
 
@@ -53,6 +58,12 @@ def _parser() -> argparse.ArgumentParser:
     e.add_argument("--serve-prefill-chunk", type=int, default=32)
     e.add_argument("--serve-sync-every", type=int, default=4)
     e.add_argument("--serve-attn", default="auto", choices=("auto", "paged", "gather"))
+    e.add_argument("--serve-kv-dtype", default="fp32", choices=KV_DTYPES)
+    e.add_argument("--serve-weight-dtype", default="fp32", choices=("fp32", "int8"))
+    e.add_argument("--serve-spec-k", type=int, default=0,
+                   help="draft tokens per speculative step; 0 = off")
+    e.add_argument("--serve-spec-draft-layers", type=int, default=0,
+                   help="draft depth; 0 = half the layers")
     e.add_argument("--metrics-out", default=None)
     e.add_argument("--device", default="cuda")
     return p
@@ -73,6 +84,8 @@ def main(argv: Optional[List[str]] = None) -> int:
         model, slots=args.serve_slots, block_size=args.serve_block_size,
         prefill_chunk=args.serve_prefill_chunk, sync_every=args.serve_sync_every,
         metrics_out=args.metrics_out, attn=args.serve_attn, device=args.device,
+        kv_dtype=args.serve_kv_dtype, weight_dtype=args.serve_weight_dtype,
+        spec_k=args.serve_spec_k, spec_draft_layers=args.serve_spec_draft_layers,
     )
     spec = TrafficSpec(
         n_requests=args.requests, seed=args.traffic_seed, rate_rps=args.rate,
@@ -96,6 +109,7 @@ def main(argv: Optional[List[str]] = None) -> int:
         "attn_kernel": engine.attn_kernel,
         "attn_launches": pa.LAUNCHES - launches0,
         "kv_dtype": engine.kv.kv_dtype,
+        "weight_dtype": engine.weight_dtype,
         "kv_bytes_per_token": engine.kv.bytes_per_token,
         **report.to_dict(),
     }

@@ -11,22 +11,35 @@ plain PyTorch functions over the paged pools of a
   ingests up to ``prefill_chunk`` prompt positions of EVERY mid-prefill
   slot in one dispatch per window; padded rows and idle lanes write the
   trash block;
+* with ``spec_k`` > 0, greedy **speculative decoding**: a **draft**
+  program (:meth:`ServeEngine._draft`, the decode step cut to the first
+  ``spec_draft_layers`` layers, writing only their K/V) proposes
+  ``spec_k`` tokens one after another, and one **verify** program
+  (:meth:`ServeEngine._verify`) runs all layers over the W = k+1 rows
+  of every lane and accepts, on the device, the longest draft prefix
+  the full model agrees with;
 * the loop runs in **flush windows**: one prefill dispatch, then up to
-  ``sync_every`` decode steps whose next tokens are chained on the
-  device (greedy argmax on the device), then ONE device-to-host copy
-  that drains the window's tokens, finishes and recycles slots, admits
-  queued requests and writes one ``ffmetrics/1`` record.
+  ``sync_every`` decode steps (or speculative macro steps: k drafts and
+  one verify) whose next tokens are chained on the device (greedy
+  argmax on the device), then ONE device-to-host copy that drains the
+  window's tokens, finishes and recycles slots, admits queued requests
+  and writes one ``ffmetrics/1`` record.
 
-Both programs scatter the new K/V into the pools IN PLACE, then attend
+Quantized pools (``kv_dtype`` "int8" or "fp8") store each written
+position through :func:`~flexflow_tpu_torch.serve.kvcache.quantize_kv`
+with its scale; ``weight_dtype="int8"`` holds every matrix as int8 with
+per-channel scales and dequantizes each layer's weights where the
+program uses them (the products stay ``torch.matmul``).
+
+Every program scatters the new K/V into the pools IN PLACE, then attends
 through :func:`~flexflow_tpu_torch.ops.cuda.paged_attention.paged_attention`
 (the CUDA kernel, ``attn="paged"``) or its plain version
 (``attn="gather"``).  ``attn="auto"`` takes the kernel on a CUDA device
 and the gather on the CPU.  Float32 matmuls stay float32: the engine
 turns TF32 off for CUDA matmuls.
 
-Not ported yet (ROADMAP.md): temperature sampling, speculative
-draft/verify, weight-only int8, quantized pools, preemption, drain and
-resume, spans, SLO, watchdog and shedding, and the fault plan.
+Not ported yet (ROADMAP.md): temperature sampling, preemption, drain
+and resume, spans, SLO, watchdog and shedding, and the fault plan.
 """
 
 from __future__ import annotations
@@ -34,14 +47,14 @@ from __future__ import annotations
 import dataclasses
 import math
 import time
-from typing import Any, Dict, List, Optional, Sequence, Union
+from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
 from flexflow_tpu_torch.device import DEFAULT_DEVICE, resolve_device
-from flexflow_tpu_torch.models.gpt_decode import layer_norm, make_cast
+from flexflow_tpu_torch.models.gpt_decode import layer_norm, make_cast, quantize_weights_int8
 from flexflow_tpu_torch.models.transformer import GPTDecoder
 from flexflow_tpu_torch.obs.metrics import MetricsStream, step_record
 from flexflow_tpu_torch.ops.cuda.paged_attention import (
@@ -49,7 +62,7 @@ from flexflow_tpu_torch.ops.cuda.paged_attention import (
     paged_attention_plain,
     resolve_serve_attn,
 )
-from flexflow_tpu_torch.serve.kvcache import PagedKVCache
+from flexflow_tpu_torch.serve.kvcache import PagedKVCache, pool_bits, quantize_kv
 from flexflow_tpu_torch.serve.scheduler import (
     ContinuousBatchingScheduler,
     Request,
@@ -94,6 +107,12 @@ class ServeReport:
     # (prefill_chunks counts per-slot logical chunks)
     prefill_dispatches: int = 0
     prefill_attn_kernel: Optional[str] = None
+    # speculative decoding (0 = off); accept rate = accepted / drafted
+    spec_k: int = 0
+    spec_draft_layers: int = 0
+    spec_accept_rate: Optional[float] = None
+    spec_drafted: int = 0
+    spec_accepted: int = 0
 
     def to_dict(self) -> Dict[str, Any]:
         d = dataclasses.asdict(self)
@@ -107,7 +126,12 @@ class ServeEngine:
     The model's parameters must already live on ``device``.  The KV pool
     defaults to full provisioning (``slots`` x blocks-per-max-seq +
     trash); a smaller ``num_blocks`` makes requests share the pool, and
-    admission then waits on the free list.
+    admission then waits on the free list.  ``kv_dtype`` picks the pool
+    format ("fp32" = the compute dtype, "bf16", "int8", "fp8"),
+    ``weight_dtype`` "int8" the weight-only int8 arm, ``spec_k`` > 0
+    greedy speculative decoding with a draft of the first
+    ``spec_draft_layers`` layers (default, or when out of range: half
+    the depth, at least one layer).
     """
 
     def __init__(
@@ -124,6 +148,9 @@ class ServeEngine:
         prefix_sharing: bool = True,
         attn: str = "auto",
         kv_dtype: str = "fp32",
+        weight_dtype: str = "fp32",
+        spec_k: int = 0,
+        spec_draft_layers: int = 0,
         dtype: torch.dtype = torch.float32,
         device: Union[str, torch.device] = DEFAULT_DEVICE,
     ) -> None:
@@ -146,7 +173,14 @@ class ServeEngine:
         self.eos_id = eos_id
         self.attn_kernel = resolve_serve_attn(attn, self.device)
         self.kv_dtype = kv_dtype
+        self.weight_dtype = str(weight_dtype)
+        if self.weight_dtype not in ("fp32", "int8"):
+            raise ValueError(f"weight_dtype {self.weight_dtype!r}: expected fp32 | int8")
         spec = self.spec
+        self.spec_k = max(0, int(spec_k))
+        self.spec_draft_layers = max(0, int(spec_draft_layers))
+        if self.spec_k and not 0 < self.spec_draft_layers < spec.num_layers:
+            self.spec_draft_layers = max(1, spec.num_layers // 2)
         self.kv = PagedKVCache(
             spec.num_layers, spec.heads, spec.head_dim,
             slots=self.slots, block_size=block_size, num_blocks=num_blocks,
@@ -155,18 +189,23 @@ class ServeEngine:
         )
         self.sched = ContinuousBatchingScheduler(self.slots, self.kv)
         self.metrics = MetricsStream(metrics_out)
-        cast = make_cast(dtype)
-        # the weights the programs read, cast once to the compute dtype
-        # (no copy when it is float32)
+        self._cast = cast = make_cast(dtype)
+        params, self._wscales = model.param_tree(), None
+        if self.weight_dtype == "int8":
+            # int8 leaves and their per-channel scales; _weights
+            # dequantizes (then casts) each int8 leaf at use
+            params, self._wscales = quantize_weights_int8(params)
+        # the other leaves, cast once to the compute dtype (no copy when it
+        # is float32)
         self._params = {
-            layer: {leaf: cast(t) for leaf, t in leaves.items()}
-            for layer, leaves in model.param_tree().items()
+            layer: {leaf: t if t.dtype == torch.int8 else cast(t) for leaf, t in leaves.items()}
+            for layer, leaves in params.items()
         }
         B, P = self.slots, self.prefill_chunk
         MB = self.kv.max_blocks_per_seq
         self._scale = 1.0 / math.sqrt(spec.head_dim)
         self._lane = torch.arange(B, device=self.device)
-        self._rows = torch.arange(P, device=self.device)
+        self._rows = torch.arange(max(P, self.spec_k + 1), device=self.device)
         self._pinned: Dict[str, torch.Tensor] = {}
         # persistent host staging for the batched prefill chunk arrays
         self._pf_toks = np.zeros((B, P), np.int32)
@@ -174,7 +213,7 @@ class ServeEngine:
         self._pf_n = np.zeros((B,), np.int32)
         self._pf_bt = np.zeros((B, MB), np.int32)
 
-        # warm both programs once (this builds the CUDA kernel and sets up
+        # warm every program once (this builds the CUDA kernel and sets up
         # the BLAS handles before any request's clock starts); all-zero
         # tables, so only the trash block is written
         z = np.zeros((B,), np.int32)
@@ -183,6 +222,10 @@ class ServeEngine:
         self._prefill(*self._to_device(
             "prefill", np.zeros((B, P), np.int32), z, np.ones((B,), np.int32), bt0,
         ))
+        if self.spec_k:
+            self._draft(*self._to_device("decode", z, z, bt0))
+            self._verify(*self._to_device(
+                "verify", np.zeros((B, self.spec_k + 1), np.int32), z, bt0))
         if self.device.type == "cuda":
             # the staging buffers are refilled by the first window
             torch.cuda.synchronize(self.device)
@@ -194,6 +237,8 @@ class ServeEngine:
         self.prefill_dispatches = 0
         self.peak_active = 0
         self._occ_sum = 0.0
+        self.spec_drafted = 0
+        self.spec_accepted = 0
 
     # --- host -> device staging -------------------------------------------
     def _to_device(self, key: str, *arrays: np.ndarray) -> List[torch.Tensor]:
@@ -218,59 +263,132 @@ class ServeEngine:
             i += n
         return out
 
-    # --- the two programs --------------------------------------------------
+    # --- the programs ------------------------------------------------------
+    def _weights(self, layer: str) -> Dict[str, torch.Tensor]:
+        """Layer ``layer``'s leaves in the compute dtype; with int8 weights
+        each int8 leaf is dequantized here, where the program uses it."""
+        leaves = self._params[layer]
+        if self._wscales is None:
+            return leaves
+        sc = self._wscales[layer]
+        return {k: self._cast(w.float() * sc[k]) if w.dtype == torch.int8 else w
+                for k, w in leaves.items()}
+
+    def _embed(self, tok, pos):
+        """Token plus position embeddings of ``tok`` at ``pos`` (same
+        shapes).  int8 tables are gathered first and then dequantized: the
+        scales are per column, so the rows equal those of the dequantized
+        table."""
+        x = []
+        for layer, leaf, idx in (("tok_embed", "kernel", tok.long()),
+                                 ("pos_embed", "value", pos.long().clamp(0, self.spec.seq - 1))):
+            w = self._params[layer][leaf][idx]
+            if w.dtype == torch.int8:
+                w = self._cast(w.float() * self._wscales[layer][leaf])
+            x.append(w)
+        return x[0] + x[1]
+
     def _attend(self, q, i, pos, bt):
         """Attention of ``q`` (B, G, H, D) over layer ``i``'s pool."""
         attend = paged_attention if self.attn_kernel == "paged" else paged_attention_plain
-        return attend(q, self.kv.cache_k[i], self.kv.cache_v[i], pos, bt, self._scale)
+        kv = self.kv
+        sk = kv.scale_k[i] if kv.quantized else None
+        sv = kv.scale_v[i] if kv.quantized else None
+        return attend(q, kv.cache_k[i], kv.cache_v[i], pos, bt, self._scale, sk, sv)
 
-    def _layers(self, x, blk, off, pos, bt):
-        """The decoder stack over rows ``x`` (B, G, hidden) whose K/V go to
-        pool block ``blk`` offset ``off`` (both (B, G)); row ``g`` of lane
-        ``b`` sits at ``pos[b] + g``."""
-        p, spec = self._params, self.spec
+    def _write_kv(self, i, blk, off, k, v):
+        """Scatter ``k``/``v`` (B, G, H, D) into layer ``i``'s pools at
+        block ``blk`` offset ``off`` (both (B, G)), IN PLACE; a quantized
+        pool stores them through ``quantize_kv`` with their scales."""
+        kv = self.kv
+        if kv.quantized:
+            k, ksc = quantize_kv(k, kv.kv_dtype)
+            v, vsc = quantize_kv(v, kv.kv_dtype)
+            kv.scale_k[i, blk, off] = ksc
+            kv.scale_v[i, blk, off] = vsc
+        pool_bits(kv.cache_k)[i, blk, :, off, :] = pool_bits(k.to(kv.dtype))
+        pool_bits(kv.cache_v)[i, blk, :, off, :] = pool_bits(v.to(kv.dtype))
+
+    def _layers(self, x, blk, off, pos, bt, depth=None):
+        """The first ``depth`` (default all) decoder layers over rows ``x``
+        (B, G, hidden) whose K/V go to pool block ``blk`` offset ``off``
+        (both (B, G)); row ``g`` of lane ``b`` sits at ``pos[b] + g``."""
+        spec = self.spec
         B, G, hid = x.shape
         H, D = spec.heads, spec.head_dim
-        for i in range(spec.num_layers):
-            pa = p[f"dec{i}_attn"]
-            h = layer_norm(p[f"dec{i}_ln0"], x, spec.eps).reshape(B * G, hid)
+        for i in range(spec.num_layers if depth is None else depth):
+            pa = self._weights(f"dec{i}_attn")
+            h = layer_norm(self._weights(f"dec{i}_ln0"), x, spec.eps).reshape(B * G, hid)
             q, k, v = h @ pa["wq"], h @ pa["wk"], h @ pa["wv"]
             if spec.has_bias:
                 q, k, v = q + pa["bq"], k + pa["bk"], v + pa["bv"]
             # scatter this chunk's K/V into the pools IN PLACE, then attend:
             # row g's mask reaches the chunk's own rows 0..g
-            self.kv.cache_k[i, blk, :, off, :] = k.reshape(B, G, H, D).to(self.kv.dtype)
-            self.kv.cache_v[i, blk, :, off, :] = v.reshape(B, G, H, D).to(self.kv.dtype)
+            self._write_kv(i, blk, off, k.reshape(B, G, H, D), v.reshape(B, G, H, D))
             o = self._attend(q.reshape(B, G, H, D), i, pos, bt)
             o = o.reshape(B * G, H * D) @ pa["wo"]
             if spec.has_bias:
                 o = o + pa["bo"]
             x = x + o.reshape(B, G, hid)
-            h = layer_norm(p[f"dec{i}_ln1"], x, spec.eps).reshape(B * G, hid)
-            p0, p1 = p[f"dec{i}_ff0"], p[f"dec{i}_ff1"]
+            h = layer_norm(self._weights(f"dec{i}_ln1"), x, spec.eps).reshape(B * G, hid)
+            p0, p1 = self._weights(f"dec{i}_ff0"), self._weights(f"dec{i}_ff1")
             f = F.gelu(h @ p0["kernel"] + p0["bias"], approximate="tanh")
             x = x + (f @ p1["kernel"] + p1["bias"]).reshape(B, G, hid)
         return x
 
     def _head(self, x):
-        """Final layer norm, LM head, float32 softmax, greedy argmax."""
-        p = self._params
-        x = layer_norm(p["final_ln"], x, self.spec.eps)
-        probs = torch.softmax((x @ p["lm_head"]["kernel"]).float(), dim=-1)
+        """Final layer norm, LM head, float32 softmax, greedy argmax over
+        rows ``x`` (N, hidden)."""
+        x = layer_norm(self._weights("final_ln"), x, self.spec.eps)
+        probs = torch.softmax((x @ self._weights("lm_head")["kernel"]).float(), dim=-1)
         return torch.argmax(probs, dim=-1).to(torch.int32), probs
+
+    def _step(self, tok, pos, bt, depth=None):
+        """One token per lane through ``depth`` layers: ``tok``/``pos``
+        (B,) int32, ``bt`` (B, MB) int32."""
+        BS, MB = self.kv.block_size, self.kv.max_blocks_per_seq
+        pos_l = pos.long()
+        x = self._embed(tok, pos)
+        blk = bt.long()[self._lane, (pos_l // BS).clamp(0, MB - 1)]
+        off = (pos_l % BS).clamp(0, BS - 1)
+        x = self._layers(x[:, None], blk[:, None], off[:, None], pos, bt, depth)
+        return self._head(x[:, 0])
 
     @torch.inference_mode()
     def _decode(self, tok, pos, bt):
         """One decode step for every lane: ``tok``/``pos`` (B,) int32,
         ``bt`` (B, MB) int32.  Returns (next token (B,) int32, probs)."""
-        p = self._params
-        BS, MB, S = self.kv.block_size, self.kv.max_blocks_per_seq, self.spec.seq
-        pos_l = pos.long()
-        x = p["tok_embed"]["kernel"][tok.long()] + p["pos_embed"]["value"][pos_l.clamp(0, S - 1)]
-        blk = bt.long()[self._lane, (pos_l // BS).clamp(0, MB - 1)]
-        off = (pos_l % BS).clamp(0, BS - 1)
-        x = self._layers(x[:, None], blk[:, None], off[:, None], pos, bt)
-        return self._head(x[:, 0])
+        return self._step(tok, pos, bt)
+
+    @torch.inference_mode()
+    def _draft(self, tok, pos, bt):
+        """The decode step cut to the first ``spec_draft_layers`` layers
+        (the shared final layer norm and LM head on top), writing only
+        those layers' K/V.  Returns the draft's next token (B,) int32.  A
+        rejected position's K/V is rewritten by the verify step before any
+        row's mask can reach it."""
+        return self._step(tok, pos, bt, self.spec_draft_layers)[0]
+
+    @torch.inference_mode()
+    def _verify(self, toks, pos0, bt) -> Tuple[torch.Tensor, ...]:
+        """All layers over W = k+1 rows per lane: ``toks`` (B, W) is
+        [current, draft_1 .. draft_k], row ``j`` at ``pos0[b] + j``.
+        Returns ``(n, acc, next_cur, next_pos)``: the full model's argmax
+        after every row (B, W), the accepted draft count (B,) (the
+        longest prefix where each draft equals the argmax of the row
+        before it), the first token not yet fed (``n[lane, acc]``) and
+        its position (``pos0 + acc + 1``), all on the device."""
+        BS, MB = self.kv.block_size, self.kv.max_blocks_per_seq
+        B, W = toks.shape
+        pos = pos0.long()[:, None] + self._rows[None, :W]  # (B, W)
+        x = self._embed(toks, pos)
+        blk = bt.long().gather(1, (pos // BS).clamp(0, MB - 1))
+        x = self._layers(x, blk, (pos % BS).clamp(0, BS - 1), pos0, bt)
+        n = self._head(x.reshape(B * W, -1))[0].reshape(B, W)
+        agree = (toks[:, 1:] == n[:, :-1]).to(torch.int32)  # (B, k)
+        acc = torch.cumprod(agree, dim=1).sum(dim=1).to(torch.int32)
+        next_cur = n[self._lane, acc.long()]
+        return n, acc, next_cur, pos0 + acc + 1
 
     @torch.inference_mode()
     def _prefill(self, toks, start, n_valid, bt):
@@ -278,12 +396,11 @@ class ServeEngine:
         and ``n_valid`` (B,), ``bt`` (B, MB), all int32.  Lanes with
         ``n_valid == 0`` ride along on the trash block.  Returns the next
         token after each lane's last valid row, and its probs."""
-        p = self._params
-        BS, MB, S = self.kv.block_size, self.kv.max_blocks_per_seq, self.spec.seq
+        BS, MB = self.kv.block_size, self.kv.max_blocks_per_seq
         P = toks.shape[1]
         pos = start.long()[:, None] + self._rows[None, :P]  # (B, P)
         valid = self._rows[None, :P] < n_valid.long()[:, None]
-        x = p["tok_embed"]["kernel"][toks.long()] + p["pos_embed"]["value"][pos.clamp(0, S - 1)]
+        x = self._embed(toks, pos)
         page = (pos // BS).clamp(0, MB - 1)
         blk = torch.where(valid, bt.long().gather(1, page), 0)
         off = torch.where(valid, pos % BS, 0)
@@ -308,6 +425,7 @@ class ServeEngine:
         self.prefill_dispatches = 0
         self.peak_active = 0
         self._occ_sum = 0.0
+        self.spec_drafted = self.spec_accepted = 0
         fin0 = len(self.sched.finished)
         rej0 = len(self.sched.rejected)
         exp0 = self.sched.expired
@@ -375,7 +493,8 @@ class ServeEngine:
 
         # 2) decode: chain next tokens on the device for an adaptive window
         dec_slots = self.sched.decode_slots()
-        buffered: List[torch.Tensor] = []
+        buffered: List[torch.Tensor] = []  # per step: next tokens (B,)
+        spec_buf: List[Tuple[torch.Tensor, torch.Tensor]] = []  # per macro: (n, acc)
         steps = 0
         if dec_slots:
             remaining = [
@@ -393,32 +512,78 @@ class ServeEngine:
                 inc[s] = 1
                 bt[s] = self.kv.tables[s]
             cur_d, pos_d, inc_d, bt_d = self._to_device("decode", cur, pos, inc, bt)
-            steps = max(1, min(self.sync_every, min(remaining)))
-            for _ in range(steps):
-                nxt, _ = self._decode(cur_d, pos_d, bt_d)
-                buffered.append(nxt)
-                cur_d = nxt  # device-to-device chain: no host fetch
-                pos_d = pos_d + inc_d
+            if self.spec_k:
+                # speculative macro steps: k chained drafts, then ONE verify
+                # over the k+1 rows; verify returns the next macro's token
+                # and position on the device, so macros chain with no host
+                # fetch either
+                W = self.spec_k + 1
+                macros = max(1, min(self.sync_every, -(-min(remaining) // W)))
+                for _ in range(macros):
+                    cur_j, pos_j, drafts = cur_d, pos_d, []
+                    for _ in range(self.spec_k):
+                        cur_j = self._draft(cur_j, pos_j, bt_d)
+                        drafts.append(cur_j)
+                        pos_j = pos_j + 1
+                    rows = torch.stack([cur_d] + drafts, dim=1)  # (B, W)
+                    n, acc, cur_d, pos_d = self._verify(rows, pos_d, bt_d)
+                    spec_buf.append((n, acc))
+                steps = macros * W  # program invocations this window
+            else:
+                steps = max(1, min(self.sync_every, min(remaining)))
+                for _ in range(steps):
+                    nxt, _ = self._decode(cur_d, pos_d, bt_d)
+                    buffered.append(nxt)
+                    cur_d = nxt  # device-to-device chain: no host fetch
+                    pos_d = pos_d + inc_d
             self.decode_steps += steps
 
         # 3) flush: the window's ONE device-to-host copy
         t_sync = self._now()
-        parts = buffered + ([pf_nxt] if chunks else [])
-        host = torch.stack(parts).cpu().numpy()
+        parts = buffered + [t for pair in spec_buf for t in pair] + ([pf_nxt] if chunks else [])
+        host = torch.cat([t.reshape(-1) for t in parts]).cpu().numpy() if parts else None
         stall = self._now() - t_sync
         self.host_syncs += 1
         flushed = 0
-        for ki in range(len(buffered)):
+        W = self.spec_k + 1
+        i = B * len(buffered)
+        host_tok = host[:i].reshape(-1, B) if buffered else []
+        host_spec = []  # per macro: (n (B, W), acc (B,))
+        for _ in spec_buf:
+            host_spec.append((host[i:i + B * W].reshape(B, W), host[i + B * W:i + B * W + B]))
+            i += B * W + B
+        host_pf = host[i:] if chunks else None
+        for ki in range(len(host_tok)):
             for s in dec_slots:
                 req = self.sched.active.get(s)
                 if req is None or req.state is not RequestState.DECODE:
                     continue  # finished earlier in this flush
-                tok = int(host[ki][s])
+                tok = int(host_tok[ki][s])
                 req.tokens.append(tok)
                 flushed += 1
                 self._finish_if_done(req, tok)
+        # speculative lanes: each macro gives its accepted drafts plus the
+        # verify row's own argmax; tokens past a finish are dropped
+        spec_drafted_w = spec_accepted_w = 0
+        for n_h, acc_h in host_spec:
+            for s in dec_slots:
+                req = self.sched.active.get(s)
+                if req is None or req.state is not RequestState.DECODE:
+                    continue
+                a = int(acc_h[s])
+                spec_drafted_w += self.spec_k
+                spec_accepted_w += a
+                for j in range(a + 1):
+                    tok = int(n_h[s, j])
+                    req.tokens.append(tok)
+                    flushed += 1
+                    self._finish_if_done(req, tok)
+                    if req.state is not RequestState.DECODE:
+                        break
+        self.spec_drafted += spec_drafted_w
+        self.spec_accepted += spec_accepted_w
         for req, slot in prefill_done:
-            tok = int(host[-1][slot])
+            tok = int(host_pf[slot])
             req.state = RequestState.DECODE
             req.tokens.append(tok)
             flushed += 1
@@ -450,9 +615,17 @@ class ServeEngine:
                 "prefill_attn_kernel": self.attn_kernel,
                 "prefill_dispatches": 1 if chunks else 0,
                 "kv_dtype": self.kv_dtype,
+                "weight_dtype": self.weight_dtype,
                 "kv_bytes_per_token": self.kv.bytes_per_token,
                 "device": str(self.device),
             }
+            if self.spec_k:
+                serve_m["spec"] = {
+                    "k": self.spec_k,
+                    "draft_layers": self.spec_draft_layers,
+                    "drafted": spec_drafted_w,
+                    "accepted": spec_accepted_w,
+                }
             self.metrics.append(step_record(
                 step=self.windows - 1, t=time.time(),
                 step_wall_s=self._now() - t_win, host_stall_s=stall,
@@ -515,6 +688,12 @@ class ServeEngine:
             requests_expired=expired,
             prefill_dispatches=self.prefill_dispatches,
             prefill_attn_kernel=self.attn_kernel,
+            spec_k=self.spec_k,
+            spec_draft_layers=self.spec_draft_layers if self.spec_k else 0,
+            spec_accept_rate=(self.spec_accepted / self.spec_drafted
+                              if self.spec_drafted else None),
+            spec_drafted=self.spec_drafted,
+            spec_accepted=self.spec_accepted,
         )
         self.metrics.close()
         return rep

@@ -1,20 +1,28 @@
 """Paged KV-cache allocator with copy-on-write prefix sharing.
 
-Counterpart of ``flexflow_tpu/serve/kvcache.py`` ``PagedKVCache`` for
-full-precision pools (float32 or bfloat16).  The host side is the same
-allocator: a free list, per-slot block tables, and ref-counted prefix
-blocks keyed by the cumulative hash of the prompt tokens they hold
-(retained in an LRU once unreferenced and evicted when the free list
-runs dry).  The device side is two torch tensors ``cache_k``/``cache_v``
-of shape ``(L, num_blocks, H, block_size, D)`` on the engine's device,
-which the serve programs update in place.
+Counterpart of ``flexflow_tpu/serve/kvcache.py`` ``PagedKVCache``.  The
+host side is the same allocator: a free list, per-slot block tables, and
+ref-counted prefix blocks keyed by the cumulative hash of the prompt
+tokens they hold (retained in an LRU once unreferenced and evicted when
+the free list runs dry).  The device side is two torch tensors
+``cache_k``/``cache_v`` of shape ``(L, num_blocks, H, block_size, D)`` on
+the engine's device, which the serve programs update in place.
+
+Pools are full precision (``kv_dtype`` "fp32", meaning the engine's
+compute dtype, or "bf16") or quantized ("int8", "fp8" =
+``torch.float8_e4m3fn``).  A quantized pool stores each position's K and
+V with one symmetric float32 scale over its (H, D) elements
+(:func:`quantize_kv`); the scales live in ``scale_k``/``scale_v`` of
+shape ``(L, num_blocks, block_size)``, addressed by physical block like
+the pools, and every reader dequantizes with :func:`dequantize_kv`.
+Zero scales (the initial state) dequantize never-written positions to
+exact zeros.
 
 Physical block 0 is the trash block: never allocated, it absorbs the
 writes of idle decode lanes and padded prefill rows (their table rows
 are all zero).
 
-Not ported yet (ROADMAP.md): int8/fp8 pools with their scale rows
-(``quantize_kv``/``dequantize_kv``) and ``spill``/``restore``.
+Not ported yet (ROADMAP.md): ``spill``/``restore``.
 """
 
 from __future__ import annotations
@@ -28,10 +36,63 @@ import torch
 
 from flexflow_tpu_torch.device import DEFAULT_DEVICE, resolve_device
 
-__all__ = ["PagedKVCache", "KVCacheOOM", "KV_DTYPES"]
+__all__ = [
+    "PagedKVCache", "KVCacheOOM", "KV_DTYPES", "kv_pool_dtype", "kv_qmax",
+    "quantize_kv", "dequantize_kv", "pool_bits",
+]
 
-# the pool formats of this slice; "fp32" means the engine's compute dtype
-KV_DTYPES = ("fp32", "bf16")
+# the --serve-kv-dtype vocabulary; "fp32" means the engine's compute dtype
+KV_DTYPES = ("fp32", "bf16", "int8", "fp8")
+
+# symmetric quantization range per storage format: int8 clips at +-127
+# (-128 stays unused so the grid is symmetric); 448 is the largest
+# finite float8_e4m3fn value
+_QMAX = {"int8": 127.0, "fp8": 448.0}
+
+
+def kv_qmax(kv_dtype: str) -> Optional[float]:
+    """Quantization ceiling of ``kv_dtype``; None for full precision."""
+    return _QMAX.get(kv_dtype)
+
+
+def kv_pool_dtype(kv_dtype: str, fallback: torch.dtype = torch.float32) -> torch.dtype:
+    """The pool element dtype of ``kv_dtype`` ("fp32" is ``fallback``, the
+    engine's compute dtype)."""
+    if kv_dtype not in KV_DTYPES:
+        raise ValueError(f"kv_dtype {kv_dtype!r}: expected one of {KV_DTYPES}")
+    return {"fp32": fallback, "bf16": torch.bfloat16, "int8": torch.int8,
+            "fp8": torch.float8_e4m3fn}[kv_dtype]
+
+
+def quantize_kv(x: torch.Tensor, kv_dtype: str) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The write-side rule: symmetric per-position scales over the
+    trailing (H, D) axes.  ``x`` is (..., H, D); returns ``(q, scale)``,
+    ``q`` in the pool dtype and ``scale`` float32 of shape
+    ``x.shape[:-2]``.  An all-zero position gets scale 1.0.  int8 rounds
+    half to even and clips at +-127; fp8 is a plain cast (``x / scale``
+    stays within 448 x (1 + 2^-23), which rounds to 448)."""
+    qmax = _QMAX[kv_dtype]
+    xf = x.float()
+    amax = xf.abs().amax(dim=(-2, -1))
+    scale = torch.where(amax > 0, amax / qmax, torch.ones_like(amax))
+    q = xf / scale[..., None, None]
+    if kv_dtype == "int8":
+        return torch.round(q).clamp(-qmax, qmax).to(torch.int8), scale
+    return q.to(torch.float8_e4m3fn), scale
+
+
+def dequantize_kv(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """The read-side rule every reader shares: the stored elements widened
+    to float32 times their position's scale.  ``q`` is (..., S, D) with
+    positions on the second-to-last axis, ``scale`` (..., S)."""
+    return q.float() * scale[..., None]
+
+
+def pool_bits(t: torch.Tensor) -> torch.Tensor:
+    """``t`` itself, or for float8 its bytes as uint8: indexing and
+    scattering float8 tensors is not implemented on every device, and the
+    bytes are the same values bit for bit."""
+    return t.view(torch.uint8) if t.dtype == torch.float8_e4m3fn else t
 
 
 class KVCacheOOM(RuntimeError):
@@ -61,13 +122,7 @@ class PagedKVCache:
     ) -> None:
         if block_size < 1 or slots < 1:
             raise ValueError(f"block_size {block_size} and slots {slots} must be >= 1")
-        if kv_dtype in ("int8", "fp8"):
-            raise NotImplementedError(
-                f"kv_dtype {kv_dtype!r}: quantized pools are not ported yet "
-                f"(ROADMAP.md, quantized paged attention)"
-            )
-        if kv_dtype not in KV_DTYPES:
-            raise ValueError(f"kv_dtype {kv_dtype!r}: expected one of {KV_DTYPES}")
+        pool_dtype = kv_pool_dtype(kv_dtype, fallback=dtype)
         self.device = resolve_device(device)
         self.num_layers = num_layers
         self.heads = heads
@@ -92,7 +147,9 @@ class PagedKVCache:
             raise ValueError("need at least the trash block + one real block")
         self.num_blocks = int(num_blocks)
         self.kv_dtype = kv_dtype
-        self.dtype = torch.bfloat16 if kv_dtype == "bf16" else dtype
+        self.dtype = pool_dtype
+        self.quantized = kv_dtype in _QMAX
+        self.qmax = kv_qmax(kv_dtype)
 
         self._free: deque = deque(range(1, self.num_blocks))  # block 0 never enters
         self._owned: Dict[int, List[int]] = {}  # slot -> blocks, in order
@@ -112,6 +169,14 @@ class PagedKVCache:
         shape = (num_layers, self.num_blocks, heads, block_size, head_dim)
         self.cache_k = torch.zeros(shape, dtype=self.dtype, device=self.device)
         self.cache_v = torch.zeros(shape, dtype=self.dtype, device=self.device)
+        # per-position scales of a quantized pool, rows addressed by
+        # physical block like the pools
+        self.scale_k: Optional[torch.Tensor] = None
+        self.scale_v: Optional[torch.Tensor] = None
+        if self.quantized:
+            sshape = (num_layers, self.num_blocks, block_size)
+            self.scale_k = torch.zeros(sshape, dtype=torch.float32, device=self.device)
+            self.scale_v = torch.zeros(sshape, dtype=torch.float32, device=self.device)
 
     # --- capacity queries --------------------------------------------------
     @property
@@ -311,9 +376,11 @@ class PagedKVCache:
             self._protected[slot] = min(self._protected.get(slot, 0), logical_idx)
             return blk
         new = self._acquire(1, protect=blocks)[0]
-        # in place: copy every layer's page into the fresh block
-        self.cache_k[:, new] = self.cache_k[:, blk]
-        self.cache_v[:, new] = self.cache_v[:, blk]
+        # in place: copy every layer's page (and its scale row) into the
+        # fresh block
+        for pool in (self.cache_k, self.cache_v, self.scale_k, self.scale_v):
+            if pool is not None:
+                pool_bits(pool)[:, new] = pool_bits(pool)[:, blk]
         self.cow_copies += 1
         self._refcount[blk] -= 1
         self._refcount[new] = 1
@@ -364,13 +431,40 @@ class PagedKVCache:
         L, H, BS, D = self.num_layers, self.heads, self.block_size, self.head_dim
 
         def dense(pool: torch.Tensor) -> torch.Tensor:
-            pages = pool[:, row]  # (L, n, H, BS, D)
+            pages = pool_bits(pool)[:, row]  # (L, n, H, BS, D)
             out = pages.permute(0, 2, 1, 3, 4).reshape(L, H, n * BS, D)
-            return out[:, :, :seq_len].cpu()
+            return out[:, :, :seq_len].cpu().view(pool.dtype)
 
         return dense(self.cache_k), dense(self.cache_v)
 
+    def gather_scales(self, slot: int, seq_len: int) -> Tuple[torch.Tensor, torch.Tensor]:
+        """``slot``'s first ``seq_len`` per-position scales as dense
+        ``(L, seq_len)`` float32 CPU tensors (quantized pools only)."""
+        if not self.quantized:
+            raise ValueError("a full-precision pool has no scales")
+        n = self.blocks_for(seq_len)
+        row = torch.as_tensor(self.tables[slot, :n], dtype=torch.long, device=self.device)
+
+        def dense(sc: torch.Tensor) -> torch.Tensor:
+            return sc[:, row].reshape(self.num_layers, -1)[:, :seq_len].cpu()
+
+        return dense(self.scale_k), dense(self.scale_v)
+
+    def gather_dense_dequant(self, slot: int, seq_len: int) -> Tuple[torch.Tensor, torch.Tensor]:
+        """:meth:`gather_dense` as float32, dequantized with
+        :func:`dequantize_kv` when the pool is quantized."""
+        k, v = self.gather_dense(slot, seq_len)
+        if not self.quantized:
+            return k.float(), v.float()
+        sk, sv = self.gather_scales(slot, seq_len)
+        # k is (L, H, S, D); the (L, S) scales broadcast over heads
+        return dequantize_kv(k, sk[:, None]), dequantize_kv(v, sv[:, None])
+
     @property
     def bytes_per_token(self) -> int:
-        """Device bytes one cached position costs across all layers."""
-        return 2 * self.num_layers * self.heads * self.head_dim * self.cache_k.element_size()
+        """Device bytes one cached position costs across all layers: its K
+        and V elements, plus two float32 scales per layer when quantized."""
+        n = 2 * self.num_layers * self.heads * self.head_dim * self.cache_k.element_size()
+        if self.quantized:
+            n += 2 * self.num_layers * 4
+        return n

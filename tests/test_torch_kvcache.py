@@ -117,8 +117,12 @@ def test_oom_and_bounds_match_jax():
         t.reserve(1, 8)
     _same_state(j, t)  # a failed reserve takes nothing
     assert t.bytes_per_token == j.bytes_per_token
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        PagedKVCache(L, H, D, slots=1, max_seq_len=8, kv_dtype="int8", device="cpu")
+    t8 = PagedKVCache(L, H, D, slots=1, max_seq_len=8, kv_dtype="int8", device="cpu")
+    j8 = JaxKV(L, H, D, slots=1, max_seq_len=8, kv_dtype="int8")
+    assert t8.cache_k.dtype == torch.int8
+    assert t8.bytes_per_token == j8.bytes_per_token == 2 * L * H * D + 2 * L * 4
+    with pytest.raises(ValueError, match="kv_dtype"):
+        PagedKVCache(L, H, D, slots=1, max_seq_len=8, kv_dtype="int4", device="cpu")
 
 
 def test_bf16_pool_dtype():

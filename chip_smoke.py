@@ -29,6 +29,12 @@ Phases, each printing one JSON line; any failure exits non-zero:
    it at the serve shapes beside its bound (1-byte K/V plus two float32
    scales per visible position), its plain version and
    ``scaled_dot_product_attention`` on pre-gathered dequantized K/V.
+   Three more cases hold the row-group path (split over pages, then
+   combined) at its edges, int8 and fp8, q float32 and bfloat16: a
+   ragged G of 20 (``ragged``), lanes at position 0 whose later splits
+   hold nothing they see (``position_0``), and rows that straddle a
+   split boundary (``straddle``).  The prefill timing also times the
+   single-pass design it replaced (``was_ms``).
 3. ``serve``: the port's main path, ``ServeEngine.run`` at GPT-2-small
    width and depth (hidden 768, 12 heads, ff 3072, 12 layers, vocab
    50257, seq 1024), float32, random weights from a seed, 8 slots,
@@ -58,14 +64,16 @@ Phases, each printing one JSON line; any failure exits non-zero:
    causal at S 2048, dropout 0.1 with a fixed seed (and a case whose V is
    the identity, so the output shows the dropped probabilities: the
    zeros must fall on the same places), and rows with no visible key
-   (output exactly 0).  Tolerances, relative to max |reference|: float32
+   (output exactly 0); ``causal_cross``, ``causal_tiled_2048`` and
+   ``no_visible_key`` run in bfloat16 as well.  Tolerances, relative to max |reference|: float32
    2e-5 forward, 1e-4 backward (the kernels sum tile by tile, the plain
    versions over whole rows); bfloat16 2e-2 (both round the same float32
    values to bfloat16, at different places for the probabilities).
    ``flash_attention_timing`` times each kernel at the slice's shape
    beside its bound, the plain version and
    ``scaled_dot_product_attention`` (forward, and its autograd backward
-   for dQ + dK + dV).
+   for dQ + dK + dV); the bfloat16 forward also times its first design
+   (``was_ms``).
 5. ``train``: the training slice's main path, BERT-Base (hidden 768,
    12 heads, ff 3072, 12 layers) on (16, 512, 768) inputs with a 64-class
    pooled head, Adam(1e-4), sparse CCE, 5 steps on one seeded batch, in
@@ -78,7 +86,9 @@ Phases, each printing one JSON line; any failure exits non-zero:
 6. ``kernels``: one line ``{"kernels": [...]}`` with each kernel's
    route, source, the TPU kernel it replaces, launches on its path
    (``paged_attention_quant``: the int8 ``serve_quant`` run, fp8 beside
-   it), error against the plain version, times and bound.
+   it), error against the plain version, times and bound, and
+   ``was_ms`` beside a redesigned kernel's time.  Every time is device
+   time: the card spins while the host queues the timed call.
 
 The line before the last is the card's name and power limit from
 ``nvidia-smi``; the last line is
@@ -116,6 +126,9 @@ QUANT_PROB_TOL = 1e-2
 # must equal the plain int8 greedy streams up to the first token whose
 # relative top-2 margin (p1 - p2) / p1 is under SPEC_MARGIN
 SPEC_K, SPEC_DRAFT, SPEC_MARGIN = 3, 6, 1e-4
+SPLIT_KEYS = 64  # the straddle case's boundary where no page split is planned
+# cycles the card spins before each timed call (about 1 ms at 1.98 GHz)
+SPIN_CYCLES = 2_000_000
 # published peaks of the cards the port runs on (NVIDIA data sheet,
 # dense): HBM bytes/s, float32 non-tensor flop/s (the float32 kernels do
 # their arithmetic on CUDA cores) and bfloat16 tensor-core flop/s (the
@@ -273,11 +286,16 @@ def main() -> int:
 
     def time_ms(fn, iters=30):
         """Median device time of one call, L2 flushed before each (the
-        50 MB L2 would otherwise hold the pages between launches)."""
+        50 MB L2 would otherwise hold the pages between launches).  The
+        card first spins for about a millisecond, so the host has queued
+        the flush, both events and the call before the card reaches them:
+        the events then bracket the call's device work, not the host's
+        enqueue of it."""
         for _ in range(3):
             fn()
         times = []
         for _ in range(iters):
+            torch.cuda._sleep(SPIN_CYCLES)
             flush_buf.zero_()
             e0 = torch.cuda.Event(enable_timing=True)
             e1 = torch.cuda.Event(enable_timing=True)
@@ -312,6 +330,15 @@ def main() -> int:
         mask = (k_pos[None, None, :] <= rows[:, :, None])[:, None]  # (B, 1, G, SV)
         qh = q.permute(0, 2, 1, 3).contiguous()
         ms = time_ms(lambda: pa.paged_attention(q, pk, pv, p_d, bt, scale, sk, sv))
+        was = {}
+        if pa.split_plan(G, D, BS, MB, pk.dtype) is not None:
+            # the single-pass design this path replaced, on the same inputs
+            keep, pa.SPLIT_MIN_ROWS = pa.SPLIT_MIN_ROWS, G + 1
+            try:
+                was["was_ms"] = time_ms(
+                    lambda: pa.paged_attention(q, pk, pv, p_d, bt, scale, sk, sv))
+            finally:
+                pa.SPLIT_MIN_ROWS = keep
         plain_ms = time_ms(lambda: pa.paged_attention_plain(q, pk, pv, p_d, bt, scale, sk, sv))
         library_ms = time_ms(lambda: F.scaled_dot_product_attention(
             qh, keys, vals, attn_mask=mask, scale=scale))
@@ -329,7 +356,7 @@ def main() -> int:
         flops = 4 * D * H * visible
         t_bytes, t_ops = nbytes / peak_bw * 1e3, flops / peak_f32 * 1e3
         return {
-            "G": G, "context": ctx, "ms": ms, "plain_ms": plain_ms,
+            "G": G, "context": ctx, "ms": ms, **was, "plain_ms": plain_ms,
             "library_ms": library_ms, "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "bytes": nbytes, "flops": flops,
@@ -371,6 +398,41 @@ def main() -> int:
                       "atol": atol, "rtol": rtol, "ok": ok})
                 if not ok:
                     raise SystemExit(f"paged_attention_quant {kv_dtype} q {q_dtype} G={G}: "
+                                     f"kernel disagrees with the plain version "
+                                     f"(max abs err {max_err})")
+    # the row-group path's edges: a ragged G, a lane at position 0 (its
+    # later splits hold nothing it sees), rows that straddle a split
+    # boundary (pages_per_split x BS keys)
+    for kv_dtype in ("int8", "fp8"):
+        for q_dtype in (f32, bf16):
+            for label, G in (("ragged", 20), ("position_0", 20), ("straddle", 20)):
+                pos = np.minimum(
+                    BS * rng.integers(0, MB, size=B) + BS // 2 + np.arange(B), MB * BS - G)
+                plan = pa.split_plan(G, D, BS, MB, torch.int8)
+                if label == "position_0":
+                    pos[: B // 2] = 0
+                if label == "straddle":
+                    bound = plan[1] * BS if plan else SPLIT_KEYS
+                    pos = np.minimum(bound * (1 + np.arange(B)) - G // 2, MB * BS - G)
+                q, pk, pv, sk, sv, p_d, bt = quant_case(rng, G, kv_dtype, pos, q_dtype)
+                got = pa.paged_attention(q, pk, pv, p_d, bt, None, sk, sv)
+                torch.cuda.synchronize()
+                want = pa.paged_attention_plain(q, pk, pv, p_d, bt, None, sk, sv)
+                err = (got.float() - want.float()).abs()
+                name = str(q_dtype).replace("torch.", "")
+                atol, rtol = TOL[name]
+                ok = bool(torch.isfinite(got.float()).all()) and bool(
+                    (err <= atol + rtol * want.float().abs()).all())
+                max_err = float(err.max())
+                if q_dtype == f32:
+                    quant_worst[kv_dtype] = max(quant_worst[kv_dtype], max_err)
+                emit({"phase": "paged_attention_quant", "case": label, "kv_dtype": kv_dtype,
+                      "q_dtype": name, "G": G, "plan": plan, "positions": pos.tolist(),
+                      "max_abs_err": max_err,
+                      "rel_err": max_err / float(want.float().abs().max()),
+                      "atol": atol, "rtol": rtol, "ok": ok})
+                if not ok:
+                    raise SystemExit(f"paged_attention_quant {label} {kv_dtype} q {q_dtype}: "
                                      f"kernel disagrees with the plain version "
                                      f"(max abs err {max_err})")
     t_quant = {kv: {"decode": timing(1, 512, kv), "prefill": timing(CHUNK, 480, kv)}
@@ -718,6 +780,10 @@ def main() -> int:
     flash_case("dropout_mask", 2, TH, 512, 128, 128, f32, False, 0.1, 1234, v_eye=True)
     flash_case("dropout_causal_bf16", 2, 4, 512, 512, 128, bf16, True, 0.1, -7)
     flash_case("no_visible_key", 2, 4, 384, 256, TD, f32, True)
+    # the bfloat16 forward's masked and tiled paths
+    flash_case("causal_cross", 2, TH, 128, 256, TD, bf16, True)
+    flash_case("causal_tiled_2048", 2, TH, 2048, 2048, TD, bf16, True)
+    flash_case("no_visible_key", 2, 4, 384, 256, TD, bf16, True)
 
     def flash_bound(kind, dtype):
         """Least time for one kernel's work at the slice's shape: each
@@ -745,11 +811,16 @@ def main() -> int:
         res = {
             "fwd": {"ms": time_ms(lambda: fa.flash_fwd(q, k, v)),
                     "plain_ms": time_ms(lambda: fa.flash_attention_fwd_plain(q, k, v))},
+        }
+        if dtype == bf16:
+            # the first bfloat16 design, which the redesign replaced
+            res["fwd"]["was_ms"] = time_ms(lambda: fa.flash_fwd(q, k, v, first_design=True))
+        res.update({
             "dq": {"ms": time_ms(lambda: fa.flash_bwd_dq(*bwd_args)),
                    "plain_ms": time_ms(lambda: fa.flash_attention_bwd_dq_plain(*bwd_args))},
             "dkv": {"ms": time_ms(lambda: fa.flash_bwd_dkv(*bwd_args)),
                     "plain_ms": time_ms(lambda: fa.flash_attention_bwd_dkv_plain(*bwd_args))},
-        }
+        })
         lq, lk, lv = (t.detach().clone().requires_grad_() for t in (q, k, v))
         lib_out = F.scaled_dot_product_attention(lq, lk, lv)
         lib_fwd = time_ms(lambda: F.scaled_dot_product_attention(lq.detach(), lk.detach(),
@@ -858,14 +929,15 @@ def main() -> int:
                  "max_abs_err": flash_worst[kind],
                  **{k: t32[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                         "library_ms")},
-                 "bfloat16": {**{k: t16[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
-                                                     "library_ms")},
+                 "bfloat16": {**{k: t16[k] for k in ("ms", "was_ms", "plain_ms", "bound_ms",
+                                                     "bound_by", "library_ms") if k in t16},
                               "launches": train_launches["bfloat16"][kind]}}
         if kind == "fwd":
             entry["also_replaces"] = tpu + "flash_attention.py:98"
         kernels.append(entry)
     def timed(t):
-        return {k: t[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
+        return {k: t[k] for k in ("ms", "was_ms", "plain_ms", "bound_ms", "bound_by",
+                                  "library_ms") if k in t}
 
     kernels.append({
         "name": "paged_attention_quant",
@@ -888,10 +960,12 @@ def main() -> int:
     return 0
 
 
-def device_profile(fn) -> dict:
+def device_profile(fn, top=10, host_top=0) -> dict:
     """Run ``fn`` under ``torch.profiler``: wall time, the union of device
-    intervals (busy time), the idle share, and the ten kernels with the
-    most device time.  ``result`` is what ``fn`` returned."""
+    intervals (busy time), the idle share, and the ``top`` kernels with the
+    most device time (all of them for None); with ``host_top``, that many
+    host operations with the most self time on the host as well.
+    ``result`` is what ``fn`` returned."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -912,8 +986,13 @@ def device_profile(fn) -> dict:
         if t_b > end:
             busy += t_b - max(t_a, end)
             end = t_b
-    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]
-    return {"wall_us": wall_us, "device_busy_us": busy if spans else None,
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:top]
+    host = {}
+    if host_top:
+        ops = sorted(prof.key_averages(), key=lambda a: -a.self_cpu_time_total)[:host_top]
+        host["top_host_ops_us"] = [{"name": a.key[:80], "self_us": a.self_cpu_time_total,
+                                    "count": a.count} for a in ops]
+    return {**host,"wall_us": wall_us, "device_busy_us": busy if spans else None,
             "device_idle_share": 1.0 - busy / wall_us if spans else None,
             "device_events": len(spans),
             "top_kernels_us": [{"name": n[:80], "total_us": t, "count": c}

@@ -14,42 +14,57 @@
 // 1-byte elements and one float32 scale per position, the scale rows
 // sk, sv (num_blocks, BS) indexed by the same physical block as the page.
 //
-// What bounds it on the card: the bytes of the live K/V pages.  A decode
-// step (G = 1) does 4*D flops per K/V position it reads (2*D*4 bytes in
-// float32), far below the H100's ~20 flop/byte balance point, so the kernel
-// is memory-bound.  What the design does about that: each block reads only
-// the pages its rows can see (page index 0 .. last, last = the page of the
-// block's last row, clamped to the table), once each, straight from the pool
-// through the block table; no dense (B, H, SV, D) gather ever exists.  Pages
-// past `last` are never read, so block 0 (the allocator's trash block, which
-// idle lanes map) contributes only through positions the causal mask admits.
+// What bounds it on the card.  The least work is the K/V of the visible
+// positions (1 or 2-4 bytes an element) and 4*D flops per visible (row, key)
+// pair: a decode step (G = 1) is bound by bytes, a prefill chunk (G = 32) by
+// operations on CUDA cores (at the serve shapes 6.3 MB against 0.39 GFLOP,
+// about 0.002 / 0.006 ms).  Neither path comes near that: both are bound by
+// latency, the number of blocks in flight and, in the single-pass path, a
+// dependent chain of shared-memory reads per element.
 //
-// Design: grid (B, H, ceil(G / ROWS)); one block of four warps per (lane,
-// head, row group), looping over the lane's pages 0..last in order.  Each
-// warp carries up to kRowsPerWarp query rows with a float32 online softmax
-// (running max m, running sum l, accumulator acc in registers).  Pages stream
-// through a ring of kStages shared-memory slots filled with cp.async, so the
-// loads of the next pages are in flight while the current one is computed
-// (one page at a time would leave the block waiting on memory latency for
-// every page).  Lane j scores key j of the page with a mul+sum over D (the
-// JAX kernel's contraction, walked in a per-lane rotated order so the lanes
-// hit different shared-memory banks), times scale, masked to -FLT_MAX where
-// k_pos > row_pos; the warp then folds the page into its rows' carries.
-// wgmma, TMA and split-K over pages are later work.
+// Two paths, chosen by the wrapper (ops/cuda/paged_attention.py):
+//
+// * Single pass (every pool format at G < SPLIT_MIN_ROWS = 2, i.e. decode;
+//   float32 and bfloat16 pools at any G; int8/fp8 pools at D != 64 or a BS
+//   that does not divide 64): grid (B, H, ceil(G / ROWS)), one block of four
+//   warps per (lane, head, row group), looping over the lane's pages 0..last
+//   in order.  Each warp carries up to kRowsPerWarp query rows with a
+//   float32 online softmax (running max m, running sum l, accumulator acc in
+//   registers).  Pages stream through a ring of kStages shared-memory slots
+//   filled with cp.async.  Lane j scores key j of the page with a mul+sum over
+//   D (walked in a per-lane rotated order so the lanes hit different banks),
+//   times scale, masked to -FLT_MAX where k_pos > row_pos; the warp then
+//   folds the page into its rows' carries.  Each block reads only the pages
+//   its rows can see (last = the page of its last row, clamped to the table),
+//   once each, straight from the pool through the block table; no dense
+//   (B, H, SV, D) gather exists, and block 0 (the trash block idle lanes map)
+//   contributes only through positions the mask admits.
+// * Row groups, split over pages (int8 and fp8 pools at G >= SPLIT_MIN_ROWS,
+//   D 64, BS dividing 64: the prefill chunk at G 32 and the speculative verify
+//   at G 4): the lane's rows score 64-key tiles on the tensor cores, and the
+//   lane's pages are split over several blocks whose partials a combine pass
+//   merges (flash-decoding), so that the grid fills the card; see the section
+//   "Kernel 5q at G >= SPLIT_MIN_ROWS" below.  Measured at the serve shapes on
+//   an H100 80GB HBM3 at 700 W (tools/torch_kernel_designs.py, device time):
+//   0.031 ms at G 32 against the single pass's 0.48, and 0.031 at G 4
+//   against 0.12, at kSplitTiles = 2 tiles per split (1 and 4 were slower).
+//   G = 1 stays on the single pass, which the split path was not built for.
+//
+// Either way a wrapper call is one launch in the wrapper's count (LAUNCHES,
+// LAUNCHES_BY_POOL): the row-group path's split and combine kernels are one
+// call, so a serve run's count stays 12 x (steps + prefill dispatches).
 //
 // Quantized pools (TKV int8_t or __nv_fp8_e4m3): a page's two scale rows
-// ride the page's ring slot, fetched through the same block-table entry
-// with 4-byte cp.async copies (any BS).  Each stored element widens exactly
-// to float32 (int8 by conversion, e4m3 through the f16 conversion), and the
-// scales are folded in rather than multiplied into every element: the score
-// is s_k = (q . Kq[k]) * sk[k] * scale, and the probability that weights
-// Vq[k] is p_k * sv[k] (the running sum l takes p_k itself).  That is the
-// JAX kernel's function (dequantize, then the same mul+sum) with one
-// multiply per key instead of one per element; the results differ from
-// the plain version by float32 rounding only.  The 1-byte pages are 4x
-// fewer bytes than float32 ones, but the per-element dependent chain of
-// shared-memory reads stays, so the kernel stays far from its bound.
-//
+// ride the page's copies, fetched through the same block-table entry with
+// 4-byte cp.async copies (any BS).  Each stored element widens exactly (to
+// float32 in the single pass, to bfloat16 in the row-group path: an int8 or
+// e4m3 value is a bfloat16 value), and the scales are folded in rather than
+// multiplied into every element: the score is s_k = (q . Kq[k]) * sk[k] *
+// scale, and the probability that weights Vq[k] is p_k * sv[k] (the running
+// sum l takes p_k itself).  That is the JAX kernel's function (dequantize,
+// then the same mul+sum) with one multiply per key instead of one per
+// element; the results differ from the plain version by float32 rounding.
+
 // Plain C interface (built by nvcc into a shared library and loaded with
 // ctypes): ff_paged_attention returns the cudaGetLastError() code after the
 // launch, 0 on success.
@@ -62,6 +77,7 @@
 #include <cfloat>
 #include <cmath>
 #include <cstddef>
+#include <cstdint>
 
 namespace {
 
@@ -300,6 +316,411 @@ cudaError_t launch(const void* q, const void* pool_k, const void* pool_v, const 
   return cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// Kernel 5q at G >= SPLIT_MIN_ROWS (the wrapper's threshold): key tiles on
+// the tensor cores, split over pages.  (The header note above describes the G = 1 path; this section is
+// the quantized pools' row-group path.)
+//
+// Grid (B, H, row groups x splits); a block owns up to 64 rows of one lane
+// and head (one warp per 16 rows) and the key tiles [split x kSplitTiles,
+// (split + 1) x kSplitTiles) of the lane, a tile being 64 keys = 64 / BS
+// pages gathered through the block table.  The entry point computes the
+// number of splits from kTileKeys and kSplitTiles, so the wrapper holds no
+// copy of either that could disagree with the kernel; it only passes the
+// size of the workspace it allocated, which the entry point checks.  A split that starts past the block's last visible page
+// returns at once; the combine kernel knows it from the positions.
+//
+// Per tile: the raw 1-byte K and V pages and their scale rows go into a ring
+// of two stages with cp.async (the next tile loads while this one is
+// computed); the block widens the stage to bfloat16 in shared memory, K as
+// [key][D] and V transposed as [d][key], exactly (an int8 or e4m3 value is a
+// bfloat16 value).  Each warp then scores its 16 rows against the 64 keys
+// with mma.sync m16n8k16 (bfloat16 in, float32 accumulate): a float32 q is
+// split into three bfloat16 parts whose sum is q exactly, so the three
+// products accumulate the float32 dot product up to float32 rounding; a
+// bfloat16 q is one part.  The score is (q . Kq) * sk * scale, masked to
+// -FLT_MAX past the row (on tiles that cross a row's position only), with a
+// base-2 online softmax over the split's tiles.  The weight of Vq[k] is
+// w = p * sv[k] in float32, split into three bfloat16 parts the same way, and
+// P.V is three more products.  The split's (m, l, acc) go to a float32
+// workspace; the combine kernel merges the live splits of every row:
+// M = max m_s, L = sum l_s 2^(m_s - M), out = sum acc_s 2^(m_s - M) / L.
+constexpr int kTileKeys = 64;   // keys per tile
+constexpr int kSplitTiles = 2;  // tiles per split (1 and 4 measured slower)
+constexpr int kGroupRows = 64;  // rows per block: 4 warps x 16
+constexpr float kLog2e = 1.4426950408889634f;
+
+using bf16 = __nv_bfloat16;
+
+__device__ __forceinline__ uint32_t pack_bf16(bf16 lo, bf16 hi) {
+  __nv_bfloat162 v;
+  v.x = lo;
+  v.y = hi;
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+__device__ __forceinline__ uint32_t ld32(const bf16* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+// the low byte of v as a stored int8 or e4m3 element, widened exactly
+template <typename TKV>
+__device__ __forceinline__ float byte_to_f32(uint32_t v);
+template <>
+__device__ __forceinline__ float byte_to_f32<int8_t>(uint32_t v) {
+  return static_cast<float>(static_cast<int8_t>(v & 0xffu));
+}
+template <>
+__device__ __forceinline__ float byte_to_f32<__nv_fp8_e4m3>(uint32_t v) {
+  return __half2float(
+      __half(__nv_cvt_fp8_to_halfraw(static_cast<__nv_fp8_storage_t>(v & 0xffu), __NV_E4M3)));
+}
+
+// x as P bfloat16 parts (hi, mid, lo) whose sum is x (exactly for P = 3)
+template <int P>
+__device__ __forceinline__ void split_bf16(float x, bf16 (&part)[P]) {
+#pragma unroll
+  for (int i = 0; i < P; ++i) {
+    part[i] = __float2bfloat16_rn(x);
+    x -= __bfloat162float(part[i]);
+  }
+}
+// the parts of two floats, packed pairwise (low half = lo)
+template <int P>
+__device__ __forceinline__ void split_pair(float lo, float hi, uint32_t (&out)[P]) {
+  bf16 a[P], b[P];
+  split_bf16<P>(lo, a);
+  split_bf16<P>(hi, b);
+#pragma unroll
+  for (int i = 0; i < P; ++i) out[i] = pack_bf16(a[i], b[i]);
+}
+
+__device__ __forceinline__ void mma16816(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// B fragment (k = kc .. kc+15, n = n0 .. n0+7) for B[k][n] = m[n][k], m
+// row-major bfloat16 with row stride ld
+__device__ __forceinline__ void load_b_t(uint32_t& b0, uint32_t& b1, const bf16* m, int ld,
+                                         int n0, int kc) {
+  const int g = (threadIdx.x % 32) / 4, t = threadIdx.x % 4;
+  const bf16* r = m + (n0 + g) * ld + kc + 2 * t;
+  b0 = ld32(r);
+  b1 = ld32(r + 8);
+}
+
+__device__ __forceinline__ float quad_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+}
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
+// shared memory of one split block: the raw ring, then the widened tile
+template <int D>
+constexpr size_t split_smem_bytes() {
+  return 2 * (2 * (size_t)kTileKeys * D + 2 * sizeof(float) * kTileKeys) +
+         sizeof(bf16) * ((size_t)kTileKeys * (D + 8) + (size_t)D * (kTileKeys + 8));
+}
+
+// The last page the rows [g0, g0 + rows) of a lane at pos0 can see, and the
+// number of splits (of kSplitTiles tiles of tp pages) that hold pages 0 .. last.
+__device__ __forceinline__ int group_last_page(int pos0, int g_end, int BS, int MB) {
+  return min((pos0 + g_end - 1) / BS, MB - 1);
+}
+__device__ __forceinline__ int live_splits(int last, int tp) {
+  return (last / tp + kSplitTiles) / kSplitTiles;
+}
+
+template <typename TQ, typename TKV, int D>
+__global__ void __launch_bounds__(128)
+paged_split_kernel(const TQ* __restrict__ q, const TKV* __restrict__ pool_k,
+                   const TKV* __restrict__ pool_v, const float* __restrict__ scale_k,
+                   const float* __restrict__ scale_v, const int* __restrict__ positions,
+                   const int* __restrict__ block_tables, float* __restrict__ part, int G, int H,
+                   int BS, int MB, int splits, float scale_log2) {
+  constexpr int QP = sizeof(TQ) == 4 ? 3 : 1;  // bfloat16 parts of q
+  constexpr int KD = D / 16, ND = D / 8, NK = kTileKeys / 8;
+  constexpr int LDK = D + 8, LDV = kTileKeys + 8;  // padded rows: no bank conflicts
+  constexpr int kRawBytes = kTileKeys * D;         // one 1-byte K (or V) tile
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned char* raw = smem_raw;  // [2 stages][K tile | V tile]
+  float* raw_sc = reinterpret_cast<float*>(raw + 2 * 2 * kRawBytes);  // [2][sk 64 | sv 64]
+  bf16* kb = reinterpret_cast<bf16*>(raw_sc + 2 * 2 * kTileKeys);     // [64][LDK]
+  bf16* vt = kb + kTileKeys * LDK;                                     // [D][LDV]
+  __shared__ float sks[kTileKeys], svs[kTileKeys];
+
+  const int b = blockIdx.x, h = blockIdx.y;
+  const int rg = blockIdx.z / splits, split = blockIdx.z % splits;
+  const int g0 = rg * kGroupRows;
+  const int g_end = min(G, g0 + kGroupRows);
+  const int pos0 = positions[b];
+  const int last = group_last_page(pos0, g_end, BS, MB);
+  const int tp = kTileKeys / BS;
+  const int tile0 = split * kSplitTiles;
+  const int tile_end = min(tile0 + kSplitTiles, last / tp + 1);
+  if (tile0 >= tile_end) return;  // nothing here is visible to the block's rows
+  const int* table = block_tables + (size_t)b * MB;
+  const int nthr = blockDim.x;
+  const int warp = threadIdx.x / 32, g = (threadIdx.x % 32) / 4, t = threadIdx.x % 4;
+  const int page_bytes = BS * D;
+  const int key_end = (last + 1) * BS;  // keys at or past this are in no visible page
+
+  auto issue = [&](int tile, int st) {
+    if (tile < tile_end) {
+      unsigned char* rk = raw + st * 2 * kRawBytes;
+      unsigned char* rv = rk + kRawBytes;
+      float* rs = raw_sc + st * 2 * kTileKeys;
+      const int chunks = page_bytes / 16;
+      for (int c = threadIdx.x; c < tp * chunks; c += nthr) {
+        const int i = c / chunks, page = tile * tp + i;
+        if (page <= last) {
+          const size_t base = ((size_t)table[page] * H + h) * page_bytes + 16 * (c % chunks);
+          cp_async16(rk + i * page_bytes + 16 * (c % chunks),
+                     reinterpret_cast<const unsigned char*>(pool_k) + base);
+          cp_async16(rv + i * page_bytes + 16 * (c % chunks),
+                     reinterpret_cast<const unsigned char*>(pool_v) + base);
+        }
+      }
+      for (int j = threadIdx.x; j < kTileKeys; j += nthr) {
+        const int page = tile * tp + j / BS;
+        if (page <= last) {
+          const size_t row = (size_t)table[page] * BS + j % BS;
+          cp_async4(rs + j, scale_k + row);
+          cp_async4(rs + kTileKeys + j, scale_v + row);
+        }
+      }
+    }
+    cp_async_commit();
+  };
+  issue(tile0, 0);
+
+  // this thread's rows, and its A fragments of q split into QP parts
+  const int r0 = g0 + warp * 16 + g, r1 = r0 + 8;
+  const bool warp_live = g0 + warp * 16 < g_end;
+  uint32_t qa[QP][KD][4];
+#pragma unroll
+  for (int kk = 0; kk < KD; ++kk)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int row = (e & 1) ? r1 : r0;
+      const int col = 16 * kk + 2 * t + ((e & 2) ? 8 : 0);
+      float x0 = 0.f, x1 = 0.f;
+      if (row < g_end) {
+        const TQ* qr = q + (((size_t)b * G + row) * H + h) * D + col;
+        x0 = to_f32(qr[0]);
+        x1 = to_f32(qr[1]);
+      }
+      uint32_t pr[QP];
+      split_pair<QP>(x0, x1, pr);
+#pragma unroll
+      for (int i = 0; i < QP; ++i) qa[i][kk][e] = pr[i];
+    }
+
+  float m[2] = {-FLT_MAX, -FLT_MAX}, l[2] = {0.f, 0.f}, o[ND][4];
+#pragma unroll
+  for (int n = 0; n < ND; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
+
+  for (int tile = tile0; tile < tile_end; ++tile) {
+    const int st = (tile - tile0) & 1;
+    issue(tile + 1, st ^ 1);
+    asm volatile("cp.async.wait_group 1;\n" ::);
+    __syncthreads();
+    // widen the stage into kb / vt (keys of pages past `last` read as 0)
+    const unsigned char* rk = raw + st * 2 * kRawBytes;
+    const int live_keys = min(kTileKeys, key_end - tile * kTileKeys);
+    for (int c = threadIdx.x; c < kTileKeys * (D / 8); c += nthr) {
+      const int key = c % kTileKeys, d0 = 8 * (c / kTileKeys);
+      uint2 k8 = make_uint2(0u, 0u), v8 = make_uint2(0u, 0u);
+      if (key < live_keys) {
+        k8 = *reinterpret_cast<const uint2*>(rk + key * D + d0);
+        v8 = *reinterpret_cast<const uint2*>(rk + kRawBytes + key * D + d0);
+      }
+      uint32_t kw[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const uint32_t kx = i < 2 ? k8.x : k8.y, vx = i < 2 ? v8.x : v8.y;
+        const int sh = 16 * (i & 1);
+        kw[i] = pack_bf16(__float2bfloat16_rn(byte_to_f32<TKV>(kx >> sh)),
+                          __float2bfloat16_rn(byte_to_f32<TKV>(kx >> (sh + 8))));
+        vt[(d0 + 2 * i) * LDV + key] = __float2bfloat16_rn(byte_to_f32<TKV>(vx >> sh));
+        vt[(d0 + 2 * i + 1) * LDV + key] = __float2bfloat16_rn(byte_to_f32<TKV>(vx >> (sh + 8)));
+      }
+      *reinterpret_cast<uint4*>(kb + key * LDK + d0) = make_uint4(kw[0], kw[1], kw[2], kw[3]);
+    }
+    for (int j = threadIdx.x; j < kTileKeys; j += nthr) {
+      const bool live = j < live_keys;
+      sks[j] = live ? raw_sc[st * 2 * kTileKeys + j] : 0.f;
+      svs[j] = live ? raw_sc[st * 2 * kTileKeys + kTileKeys + j] : 0.f;
+    }
+    __syncthreads();
+
+    if (warp_live) {
+      float s[NK][4];
+#pragma unroll
+      for (int j = 0; j < NK; ++j) {
+        s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+#pragma unroll
+        for (int kk = 0; kk < KD; ++kk) {
+          uint32_t b0, b1;
+          load_b_t(b0, b1, kb, LDK, 8 * j, 16 * kk);
+#pragma unroll
+          for (int i = 0; i < QP; ++i) mma16816(s[j], qa[i][kk], b0, b1);
+        }
+      }
+      const int key0 = tile * kTileKeys;
+      // every key of the tile visible to every row of the warp: no mask
+      const bool full = key0 + kTileKeys <= min(key_end, pos0 + g0 + warp * 16 + 1);
+      const int rpos[2] = {pos0 + r0, pos0 + r1};
+      float mx[2] = {-FLT_MAX, -FLT_MAX};
+#pragma unroll
+      for (int j = 0; j < NK; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int kj = 8 * j + 2 * t + (e & 1);
+          const bool vis = full || (key0 + kj <= rpos[e / 2] && key0 + kj < key_end);
+          s[j][e] = vis ? s[j][e] * (sks[kj] * scale_log2) : -FLT_MAX;
+          mx[e / 2] = fmaxf(mx[e / 2], s[j][e]);
+        }
+      float m_new[2], alpha[2], psum[2] = {0.f, 0.f};
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        m_new[r] = fmaxf(m[r], quad_max(mx[r]));
+        alpha[r] = exp2f(m[r] - m_new[r]);
+      }
+#pragma unroll
+      for (int j = 0; j < NK; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int r = e / 2;
+          const int kj = 8 * j + 2 * t + (e & 1);
+          const float p = s[j][e] == -FLT_MAX ? 0.f : exp2f(s[j][e] - m_new[r]);
+          psum[r] += p;
+          s[j][e] = p * svs[kj];  // V's scale folded into its weight
+        }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        l[r] = l[r] * alpha[r] + quad_sum(psum[r]);
+        m[r] = m_new[r];
+      }
+#pragma unroll
+      for (int n = 0; n < ND; ++n) {
+        o[n][0] *= alpha[0];
+        o[n][1] *= alpha[0];
+        o[n][2] *= alpha[1];
+        o[n][3] *= alpha[1];
+      }
+#pragma unroll
+      for (int kk = 0; kk < kTileKeys / 16; ++kk) {
+        uint32_t a[3][4], pr[3];
+        split_pair<3>(s[2 * kk][0], s[2 * kk][1], pr);
+#pragma unroll
+        for (int i = 0; i < 3; ++i) a[i][0] = pr[i];
+        split_pair<3>(s[2 * kk][2], s[2 * kk][3], pr);
+#pragma unroll
+        for (int i = 0; i < 3; ++i) a[i][1] = pr[i];
+        split_pair<3>(s[2 * kk + 1][0], s[2 * kk + 1][1], pr);
+#pragma unroll
+        for (int i = 0; i < 3; ++i) a[i][2] = pr[i];
+        split_pair<3>(s[2 * kk + 1][2], s[2 * kk + 1][3], pr);
+#pragma unroll
+        for (int i = 0; i < 3; ++i) a[i][3] = pr[i];
+#pragma unroll
+        for (int n = 0; n < ND; ++n) {
+          uint32_t b0, b1;
+          load_b_t(b0, b1, vt, LDV, 8 * n, 16 * kk);
+#pragma unroll
+          for (int i = 0; i < 3; ++i) mma16816(o[n], a[i], b0, b1);
+        }
+      }
+    }
+    __syncthreads();  // kb / vt and the stage are consumed before they are refilled
+  }
+
+  // the split's partials: acc [B][H][splits][G][D], then (m, l) [B][H][splits][G][2]
+  if (!warp_live) return;
+  const size_t lane_split = ((size_t)b * H + h) * splits + split;
+  float* acc = part + lane_split * G * D;
+  float* ml = part + (size_t)gridDim.x * H * splits * G * D + lane_split * G * 2;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = r ? r1 : r0;
+    if (row >= g_end) continue;
+#pragma unroll
+    for (int n = 0; n < ND; ++n)
+      *reinterpret_cast<float2*>(acc + (size_t)row * D + 8 * n + 2 * t) =
+          make_float2(o[n][2 * r], o[n][2 * r + 1]);
+    if (t == 0) *reinterpret_cast<float2*>(ml + 2 * row) = make_float2(m[r], l[r]);
+  }
+}
+
+// one thread per output element: merge the live splits of its row
+template <typename TQ>
+__global__ void __launch_bounds__(128)
+paged_combine_kernel(const float* __restrict__ part, const int* __restrict__ positions,
+                     TQ* __restrict__ out, int G, int H, int D, int BS, int MB, int splits) {
+  const int b = blockIdx.x, h = blockIdx.y;
+  const int idx = blockIdx.z * blockDim.x + threadIdx.x;
+  const int row = idx / D, d = idx % D;
+  if (row >= G) return;
+  const int g_end = min(G, (row / kGroupRows + 1) * kGroupRows);
+  const int last = group_last_page(positions[b], g_end, BS, MB);
+  const int n = live_splits(last, kTileKeys / BS);
+  const size_t lane = ((size_t)b * H + h) * splits;
+  const float* acc = part + lane * G * D + (size_t)row * D + d;
+  const float* ml = part + (size_t)gridDim.x * H * splits * G * D + lane * G * 2 + 2 * row;
+  float mx = -FLT_MAX;
+  for (int s = 0; s < n; ++s)
+    if (ml[(size_t)s * G * 2 + 1] > 0.f) mx = fmaxf(mx, ml[(size_t)s * G * 2]);
+  float num = 0.f, den = 0.f;
+  for (int s = 0; s < n; ++s) {
+    const float ls = ml[(size_t)s * G * 2 + 1];
+    if (ls > 0.f) {
+      const float w = exp2f(ml[(size_t)s * G * 2] - mx);
+      den += ls * w;
+      num += acc[(size_t)s * G * D] * w;
+    }
+  }
+  store(out + (((size_t)b * G + row) * H + h) * D + d, num / den);
+}
+
+template <typename TQ, typename TKV, int D>
+cudaError_t launch_split(const void* q, const void* pool_k, const void* pool_v,
+                         const void* scale_k, const void* scale_v, const void* positions,
+                         const void* block_tables, void* out, void* part, int B, int G, int H,
+                         int BS, int MB, int splits, float scale, cudaStream_t stream) {
+  auto kernel = paged_split_kernel<TQ, TKV, D>;
+  const size_t smem = split_smem_bytes<D>();
+  if (smem > 48 * 1024) {
+    cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) {
+      cudaGetLastError();
+      return err;
+    }
+  }
+  const int groups = (G + kGroupRows - 1) / kGroupRows;
+  const int rows = G < kGroupRows ? G : kGroupRows;
+  kernel<<<dim3(B, H, groups * splits), 32 * ((rows + 15) / 16), smem, stream>>>(
+      static_cast<const TQ*>(q), static_cast<const TKV*>(pool_k),
+      static_cast<const TKV*>(pool_v), static_cast<const float*>(scale_k),
+      static_cast<const float*>(scale_v), static_cast<const int*>(positions),
+      static_cast<const int*>(block_tables), static_cast<float*>(part), G, H, BS, MB, splits,
+      scale * kLog2e);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  paged_combine_kernel<TQ><<<dim3(B, H, (G * D + 127) / 128), 128, 0, stream>>>(
+      static_cast<const float*>(part), static_cast<const int*>(positions),
+      static_cast<TQ*>(out), G, H, D, BS, MB, splits);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // Pool formats: 0 float32, 1 bfloat16, 2 int8, 3 float8 e4m3 (the last two
@@ -340,4 +761,36 @@ extern "C" int ff_paged_attention(const void* q, const void* pool_k, const void*
 
 extern "C" const char* ff_cuda_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
+}
+
+// Kernel 5q's row-group path (see its section above): int8 (kv_format 2) or
+// float8 e4m3 (3) pools, D 64 (at D 128 the float32-q instantiation needs
+// more than 255 registers), BS dividing 64, q float32 or bfloat16.
+// `part` is a float32 workspace of `part_floats` values; the launch needs
+// B x H x splits x G x (D + 2) of them, splits = ceil(MB / (kSplitTiles x
+// kTileKeys / BS)), and refuses a smaller one.
+extern "C" int ff_paged_attention_split(const void* q, const void* pool_k, const void* pool_v,
+                                        const void* scale_k, const void* scale_v,
+                                        const void* positions, const void* block_tables,
+                                        void* out, void* part, long long part_floats, int B,
+                                        int G, int H, int D, int BS, int MB, float scale,
+                                        int q_bf16, int kv_format, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if ((kv_format != 2 && kv_format != 3) || D != 64 || BS < 1 || kTileKeys % BS || MB < 1 ||
+      scale_k == nullptr || scale_v == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int pages = kSplitTiles * (kTileKeys / BS);
+  const int splits = (MB + pages - 1) / pages;
+  if ((long long)B * H * splits * G * (D + 2) > part_floats)
+    return static_cast<int>(cudaErrorInvalidValue);
+#define FF_SPLIT(TQ, TKV)                                                                   \
+  launch_split<TQ, TKV, 64>(q, pool_k, pool_v, scale_k, scale_v, positions, block_tables, out, \
+                            part, B, G, H, BS, MB, splits, scale, s)
+  cudaError_t err;
+  if (q_bf16)
+    err = kv_format == 2 ? FF_SPLIT(__nv_bfloat16, int8_t) : FF_SPLIT(__nv_bfloat16, __nv_fp8_e4m3);
+  else
+    err = kv_format == 2 ? FF_SPLIT(float, int8_t) : FF_SPLIT(float, __nv_fp8_e4m3);
+#undef FF_SPLIT
+  return static_cast<int>(err);
 }

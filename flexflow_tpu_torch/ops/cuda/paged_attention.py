@@ -13,8 +13,9 @@ allocator's trash block.  Row ``g`` attends positions
   the hand-written kernel ``csrc/paged_attention.cu`` (which replaces
   the TPU kernel ``_kernel`` of the JAX module, full-precision and
   quantized) and adds one to :data:`LAUNCHES` and to
-  :data:`LAUNCHES_BY_POOL` under the pool's dtype; a build or launch
-  failure raises.  On CPU tensors
+  :data:`LAUNCHES_BY_POOL` under the pool's dtype, once per call (the
+  quantized row-group path's split and combine kernels are one call); a
+  build or launch failure raises.  On CPU tensors
   it takes the plain version.  It never falls back from CUDA to the
   plain version.
 * :func:`paged_attention_plain` is the plain PyTorch version: gather
@@ -23,6 +24,10 @@ allocator's trash block.  Row ``g`` attends positions
   mul+sum score contraction, float32 softmax.  It is the function the
   engine's ``attend`` computes (``attn="gather"``) and what the CPU
   tests run.
+* :func:`paged_attention_split_plain` is the plain version of the
+  quantized kernel's row-group path (:data:`SPLIT_MIN_ROWS` rows or
+  more): the softmax taken over segments of pages, each segment's
+  (max, sum, weighted sum) kept, then merged.  Only the tests use it.
 """
 
 from __future__ import annotations
@@ -38,9 +43,11 @@ __all__ = [
     "MAX_HEAD_DIM",
     "paged_attention",
     "paged_attention_plain",
+    "paged_attention_split_plain",
     "paged_decode_attention",
     "paged_prefill_attention",
     "resolve_serve_attn",
+    "split_plan",
 ]
 
 # kernel launches through paged_attention(); read and reset by callers
@@ -51,6 +58,14 @@ LAUNCHES = 0
 LAUNCHES_BY_POOL: dict = {}
 
 MAX_HEAD_DIM = 256  # the kernel keeps D / 32 accumulators per lane, at most 8
+# int8 and float8 pools with at least this many rows per lane take the
+# kernel's row-group path: 64-key tiles on the tensor cores, the lane's
+# pages split over blocks of two tiles each, a combine pass after
+SPLIT_MIN_ROWS = 2
+# the path's shapes, as csrc/paged_attention.cu fixes them (kTileKeys,
+# kSplitTiles, its one head dim); the kernel computes its splits itself and
+# refuses a workspace smaller than these give
+_TILE_KEYS, _SPLIT_TILES, _SPLIT_HEAD_DIM = 64, 2, 64
 _FLOATS = (torch.float32, torch.bfloat16)
 _QUANT = (torch.int8, torch.float8_e4m3fn)
 # the kernel's pool-format codes (csrc/paged_attention.cu)
@@ -102,14 +117,13 @@ def _pages(pool, bt, scales):
     return pages.float() * scales[bt][:, :, None, :, None]
 
 
-def paged_attention_plain(q, pool_k, pool_v, positions, block_tables, scale=None,
-                          scale_k=None, scale_v=None):
-    """The plain PyTorch version (see the module docstring)."""
+def _scores(q, pool_k, pool_v, positions, block_tables, scale, scale_k, scale_v):
+    """The plain versions' float32 scores (B, G, H, SV) over the gathered
+    (dequantized) keys, their visibility (B, G, 1, SV) and the values
+    (B, H, SV, D)."""
     _check_scales(pool_k, pool_v, scale_k, scale_v)
     B, G, H, D = q.shape
-    BS = pool_k.shape[2]
-    MB = block_tables.shape[1]
-    SV = MB * BS
+    SV = block_tables.shape[1] * pool_k.shape[2]
     if scale is None:
         scale = 1.0 / math.sqrt(D)
     bt = block_tables.long()
@@ -118,12 +132,58 @@ def paged_attention_plain(q, pool_k, pool_v, positions, block_tables, scale=None
     scores = (q.float()[..., None, :] * keys[:, None]).sum(-1) * scale  # (B, G, H, SV)
     k_pos = torch.arange(SV, device=q.device)
     row_pos = positions.long()[:, None] + torch.arange(G, device=q.device)  # (B, G)
-    mask = k_pos[None, None, :] <= row_pos[:, :, None]  # (B, G, SV)
-    scores = torch.where(
-        mask[:, :, None, :], scores, torch.finfo(torch.float32).min
-    )
-    w = torch.softmax(scores, dim=-1)
+    vis = (k_pos[None, None, :] <= row_pos[:, :, None])[:, :, None, :]
+    return scores, vis, vals
+
+
+def paged_attention_plain(q, pool_k, pool_v, positions, block_tables, scale=None,
+                          scale_k=None, scale_v=None):
+    """The plain PyTorch version (see the module docstring)."""
+    scores, vis, vals = _scores(q, pool_k, pool_v, positions, block_tables, scale,
+                                scale_k, scale_v)
+    w = torch.softmax(torch.where(vis, scores, torch.finfo(torch.float32).min), dim=-1)
     return (w[..., None] * vals[:, None]).sum(-2).to(q.dtype)
+
+
+def split_plan(G, D, BS, MB, pool_dtype):
+    """``(splits, pages per split)`` of the quantized kernel's row-group
+    path for ``G`` rows per lane over tables of ``MB`` pages of ``BS``,
+    or None where the single-pass path runs (fewer rows, a full-precision
+    pool, a head dim or page size the path does not take)."""
+    if (pool_dtype not in _QUANT or G < SPLIT_MIN_ROWS or D != _SPLIT_HEAD_DIM
+            or _TILE_KEYS % BS):
+        return None
+    pages = _SPLIT_TILES * (_TILE_KEYS // BS)
+    return -(-MB // pages), pages
+
+
+def paged_attention_split_plain(q, pool_k, pool_v, positions, block_tables, scale=None,
+                                scale_k=None, scale_v=None, pages_per_split=4):
+    """The plain version of the split-and-combine arithmetic: the lane's
+    pages in segments of ``pages_per_split`` (the last one shorter); per
+    segment and row the max ``m`` of the visible scores, ``l = sum
+    exp(s - m)`` and ``acc = sum exp(s - m) v`` (``l = 0`` where the row
+    sees none of the segment); then ``M = max m`` over segments with
+    ``l > 0`` and ``out = sum acc e^(m - M) / sum l e^(m - M)``."""
+    scores, vis, vals = _scores(q, pool_k, pool_v, positions, block_tables, scale,
+                                scale_k, scale_v)
+    SV, BS = scores.shape[-1], pool_k.shape[2]
+    neg = torch.finfo(torch.float32).min
+    ms, ls, accs = [], [], []
+    for lo in range(0, SV, pages_per_split * BS):
+        seg = slice(lo, min(SV, lo + pages_per_split * BS))
+        v = vis[..., seg]
+        s = torch.where(v, scores[..., seg], neg)
+        m = s.amax(-1)
+        p = torch.where(v, torch.exp(s - m[..., None]), 0.0)
+        ms.append(m)
+        ls.append(p.sum(-1))
+        accs.append((p[..., None] * vals[:, None, :, seg]).sum(-2))
+    m, l, acc = torch.stack(ms), torch.stack(ls), torch.stack(accs)  # segments first
+    top = torch.where(l > 0, m, neg).amax(0)
+    w = torch.where(l > 0, torch.exp(m - top), 0.0)
+    out = (acc * w[..., None]).sum(0) / (l * w).sum(0)[..., None]
+    return out.to(q.dtype)
 
 
 def _check(q, pool_k, pool_v, positions, block_tables, scale_k=None, scale_v=None) -> None:
@@ -197,6 +257,11 @@ def _library():
             + [ctypes.c_int] * 2 + [ctypes.c_void_p]
         )
         lib.ff_paged_attention.restype = ctypes.c_int
+        lib.ff_paged_attention_split.argtypes = (
+            [ctypes.c_void_p] * 9 + [ctypes.c_longlong] + [ctypes.c_int] * 6
+            + [ctypes.c_float] + [ctypes.c_int] * 2 + [ctypes.c_void_p]
+        )
+        lib.ff_paged_attention_split.restype = ctypes.c_int
         lib.ff_cuda_error_string.argtypes = [ctypes.c_int]
         lib.ff_cuda_error_string.restype = ctypes.c_char_p
         _lib = lib
@@ -228,17 +293,24 @@ def paged_attention(q, pool_k, pool_v, positions, block_tables, scale=None,
     BS = pool_k.shape[2]
     MB = block_tables.shape[1]
     out = torch.empty_like(q)
+    plan = split_plan(G, D, BS, MB, pool_k.dtype)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = lib.ff_paged_attention(
-            q.data_ptr(), pool_k.data_ptr(), pool_v.data_ptr(),
-            None if scale_k is None else scale_k.data_ptr(),
-            None if scale_v is None else scale_v.data_ptr(),
-            positions.data_ptr(), block_tables.data_ptr(), out.data_ptr(),
-            B, G, H, D, BS, MB, float(scale),
-            int(q.dtype == torch.bfloat16), _POOL_FORMAT[pool_k.dtype],
-            stream,
-        )
+        tensors = (q.data_ptr(), pool_k.data_ptr(), pool_v.data_ptr(),
+                   None if scale_k is None else scale_k.data_ptr(),
+                   None if scale_v is None else scale_v.data_ptr(),
+                   positions.data_ptr(), block_tables.data_ptr(), out.data_ptr())
+        formats = (int(q.dtype == torch.bfloat16), _POOL_FORMAT[pool_k.dtype], stream)
+        if plan is None:
+            rc = lib.ff_paged_attention(*tensors, B, G, H, D, BS, MB, float(scale), *formats)
+        else:
+            # the splits' (acc, m, l) partials; the launch's combine pass
+            # reads them back
+            part = torch.empty(B * H * plan[0] * G * (D + 2), dtype=torch.float32,
+                               device=q.device)
+            rc = lib.ff_paged_attention_split(
+                *tensors, part.data_ptr(), part.numel(), B, G, H, D, BS, MB, float(scale),
+                *formats)
     if rc != 0:
         msg = lib.ff_cuda_error_string(rc).decode(errors="replace")
         raise RuntimeError(f"paged_attention kernel launch failed: {msg} (cudaError {rc})")

@@ -17,7 +17,9 @@ plain PyTorch functions over the paged pools of a
   ``spec_k`` tokens one after another, and one **verify** program
   (:meth:`ServeEngine._verify`) runs all layers over the W = k+1 rows
   of every lane and accepts, on the device, the longest draft prefix
-  the full model agrees with;
+  the full model agrees with; a row past the end of its lane's block
+  table (a macro may run up to ``spec_k`` positions past a budget)
+  writes the trash block;
 * the loop runs in **flush windows**: one prefill dispatch, then up to
   ``sync_every`` decode steps (or speculative macro steps: k drafts and
   one verify) whose next tokens are chained on the device (greedy
@@ -343,15 +345,24 @@ class ServeEngine:
         probs = torch.softmax((x @ self._weights("lm_head")["kernel"]).float(), dim=-1)
         return torch.argmax(probs, dim=-1).to(torch.int32), probs
 
+    def _slots(self, pos, bt):
+        """Pool block and offset (both (B, R)) of rows at positions
+        ``pos`` (B, R) through tables ``bt`` (B, MB).  A speculative row
+        past the table's end (position >= MB x BS, beyond its request's
+        budget) goes to the trash block 0 at offset 0, as a padded
+        prefill row does: clipped to the last page it would overwrite the
+        lane's real position there."""
+        BS, MB = self.kv.block_size, self.kv.max_blocks_per_seq
+        inside = pos < MB * BS
+        blk = bt.long().gather(1, (pos // BS).clamp(0, MB - 1))
+        return torch.where(inside, blk, 0), torch.where(inside, pos % BS, 0)
+
     def _step(self, tok, pos, bt, depth=None):
         """One token per lane through ``depth`` layers: ``tok``/``pos``
         (B,) int32, ``bt`` (B, MB) int32."""
-        BS, MB = self.kv.block_size, self.kv.max_blocks_per_seq
-        pos_l = pos.long()
         x = self._embed(tok, pos)
-        blk = bt.long()[self._lane, (pos_l // BS).clamp(0, MB - 1)]
-        off = (pos_l % BS).clamp(0, BS - 1)
-        x = self._layers(x[:, None], blk[:, None], off[:, None], pos, bt, depth)
+        blk, off = self._slots(pos.long()[:, None], bt)
+        x = self._layers(x[:, None], blk, off, pos, bt, depth)
         return self._head(x[:, 0])
 
     @torch.inference_mode()
@@ -378,12 +389,10 @@ class ServeEngine:
         longest prefix where each draft equals the argmax of the row
         before it), the first token not yet fed (``n[lane, acc]``) and
         its position (``pos0 + acc + 1``), all on the device."""
-        BS, MB = self.kv.block_size, self.kv.max_blocks_per_seq
         B, W = toks.shape
         pos = pos0.long()[:, None] + self._rows[None, :W]  # (B, W)
         x = self._embed(toks, pos)
-        blk = bt.long().gather(1, (pos // BS).clamp(0, MB - 1))
-        x = self._layers(x, blk, (pos % BS).clamp(0, BS - 1), pos0, bt)
+        x = self._layers(x, *self._slots(pos, bt), pos0, bt)
         n = self._head(x.reshape(B * W, -1))[0].reshape(B, W)
         agree = (toks[:, 1:] == n[:, :-1]).to(torch.int32)  # (B, k)
         acc = torch.cumprod(agree, dim=1).sum(dim=1).to(torch.int32)

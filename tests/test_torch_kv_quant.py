@@ -179,11 +179,11 @@ def test_copy_on_write_carries_scale_rows(kv_dtype):
 
 
 # -------------------------------------------------- quantized paged attention
-def _quant_case(seed, kv_dtype, B, G, H, D, BS, MB):
+def _quant_case(seed, kv_dtype, B, G, H, D, BS, MB, pos=None):
     """Quantized pools as the serve programs write them, with the pages
     past each lane's last visible page poisoned (ints at the format's
     maximum, scale rows 1e4) and the trash block poisoned with zero
-    scales."""
+    scales.  ``pos`` (B,) overrides the lanes' drawn positions."""
     rng = np.random.default_rng(seed)
     N = B * MB + 1
     q = rng.standard_normal((B, G, H, D)).astype(np.float32)
@@ -194,8 +194,9 @@ def _quant_case(seed, kv_dtype, B, G, H, D, BS, MB):
         pools.append([qx.permute(0, 2, 1, 3).contiguous(), sc.contiguous()])
     bt = (rng.permutation(N - 1) + 1)[: B * MB].reshape(B, MB).astype(np.int32)
     hi = MB * BS - G
-    pos = np.maximum(np.array(
+    drawn = np.maximum(np.array(
         [min(hi, BS * int(rng.integers(0, MB)) + BS // 2 + b) for b in range(B)], np.int32), 0)
+    pos = drawn if pos is None else np.asarray(pos, np.int32)
     top = torch.full((H, BS, D), tkv.kv_qmax(kv_dtype)).to(pools[0][0].dtype)
     for pool, sc in pools:
         tkv.pool_bits(pool)[0] = tkv.pool_bits(top)
@@ -233,6 +234,57 @@ def test_plain_quantized_matches_pallas_kernel(monkeypatch, kv_dtype, G):
     got_bf = tpa.paged_attention(torch.from_numpy(q).bfloat16(), pk, pv,
                                  torch.from_numpy(pos), torch.from_numpy(bt), None, sk, sv)
     assert got_bf.dtype == torch.bfloat16
+
+
+# lane 0 at position 0 (its later segments hold nothing it sees), lane 1
+# with rows that straddle a segment boundary, lane 2 near the table's end;
+# 7 pages in segments of 2 or 3 (neither divides 7)
+@pytest.mark.parametrize("G, pages", [(5, 2), (8, 3)])
+@pytest.mark.parametrize("kv_dtype", KV_QUANT)
+def test_split_plain_matches_unsplit_and_pallas_kernel(monkeypatch, kv_dtype, G, pages):
+    monkeypatch.setattr(jpa, "INTERPRET", True)
+    B, H, D, BS, MB = 3, 2, 16, 4, 7
+    pos = [0, pages * BS - 2, MB * BS - G]
+    q, pk, pv, sk, sv, pos, bt = _quant_case(G + pages, kv_dtype, B, G, H, D, BS, MB, pos)
+    jdt = jnp.int8 if kv_dtype == "int8" else jnp.float8_e4m3fn
+    want = np.asarray(jpa.paged_prefill_attention(
+        jnp.asarray(q), jnp.asarray(_bits(pk)).view(jdt), jnp.asarray(_bits(pv)).view(jdt),
+        jnp.asarray(pos), jnp.asarray(bt),
+        scale_k=jnp.asarray(sk.numpy()), scale_v=jnp.asarray(sv.numpy()),
+    ))
+    args = (torch.from_numpy(q), pk, pv, torch.from_numpy(pos), torch.from_numpy(bt), None,
+            sk, sv)
+    got = tpa.paged_attention_split_plain(*args, pages_per_split=pages)
+    assert got.dtype == torch.float32 and got.shape == (B, G, H, D)
+    np.testing.assert_allclose(got.numpy(), tpa.paged_attention_plain(*args).numpy(),
+                               atol=1e-6, rtol=0)
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-5, rtol=0)
+    # one segment of all the pages is the unsplit softmax
+    np.testing.assert_allclose(tpa.paged_attention_split_plain(*args, pages_per_split=MB),
+                               tpa.paged_attention_plain(*args).numpy(), atol=1e-6, rtol=0)
+    bf = (args[0].bfloat16(),) + args[1:]
+    got_bf = tpa.paged_attention_split_plain(*bf, pages_per_split=pages)
+    assert got_bf.dtype == torch.bfloat16
+    np.testing.assert_allclose(got_bf.float().numpy(),
+                               tpa.paged_attention_plain(*bf).float().numpy(),
+                               atol=1e-2, rtol=2.0 ** -7)
+
+
+def test_split_plan_takes_quantized_row_groups_only():
+    """Which calls the kernel's row-group path takes, and its segments."""
+    i8, f8 = torch.int8, torch.float8_e4m3fn
+    rows, tiles, keys = tpa.SPLIT_MIN_ROWS, 2, 64  # csrc: kSplitTiles, kTileKeys
+    pages = tiles * keys // 16
+    assert tpa.split_plan(rows, 64, 16, 64, i8) == (-(-64 // pages), pages)
+    assert tpa.split_plan(32, 64, 16, 5, f8) == (1, pages)
+    assert tpa.split_plan(32, 128, 16, 64, i8) is None
+    assert tpa.split_plan(32, 64, 4, 100, i8) == (-(-100 // (tiles * keys // 4)),
+                                                  tiles * keys // 4)
+    assert tpa.split_plan(rows - 1, 64, 16, 64, i8) is None
+    assert tpa.split_plan(32, 64, 16, 64, torch.float32) is None
+    assert tpa.split_plan(32, 64, 16, 64, torch.bfloat16) is None
+    assert tpa.split_plan(32, 16, 16, 64, i8) is None
+    assert tpa.split_plan(32, 64, 48, 64, i8) is None
 
 
 def test_scale_rows_go_with_quantized_pools_only():

@@ -40,6 +40,7 @@ from flexflow_tpu.serve import synthetic_requests as jax_requests  # noqa: E402
 from flexflow_tpu_torch.models.transformer import GPTDecoder, load_jax_params  # noqa: E402
 from flexflow_tpu_torch.serve import ServeEngine, TrafficSpec, synthetic_requests  # noqa: E402
 from flexflow_tpu_torch.serve.driver import main as driver_main  # noqa: E402
+from flexflow_tpu_torch.serve.scheduler import Request  # noqa: E402
 
 SLOTS, SEQ, VOCAB = 4, 48, 31
 SHAPE = dict(hidden=32, heads=4, ff_dim=64, num_layers=2, vocab=VOCAB)
@@ -190,6 +191,48 @@ def test_spec_streams_match_jax_engine_and_plain_greedy(jax_model, port_model, k
     ServeEngine(port_model, device="cpu", kv_dtype=kv_dtype, **ENGINE).run(plain)
     assert _streams(plain) == _streams(treqs)
     teng.kv.check_invariants()
+
+
+# with rows past the table's end clipped onto its last page, seeds 0, 2
+# and 6 left the plain stream, and every seed's last page lost real K/V
+@pytest.mark.parametrize("seed", [0, 1, 2, 3, 6])
+def test_spec_rows_past_the_table_end_leave_real_positions_alone(seed, monkeypatch):
+    """Budgets that fill the block table (seq 32 = 8 blocks of 4): a
+    speculative macro runs up to k rows past the last position, and those
+    rows must write the trash block, not the lane's last page.  The port
+    only: the JAX engine clips them onto the last page."""
+    m = GPTDecoder(seq=32, hidden=32, heads=4, ff_dim=64, num_layers=4, vocab=VOCAB,
+                   seed=seed, device="cpu")
+    engine = dict(slots=2, block_size=4, prefill_chunk=8, sync_every=4, device="cpu")
+
+    def run(spec_k):
+        rng = np.random.RandomState(seed)
+        reqs = [Request(prompt=rng.randint(0, VOCAB, n), max_new_tokens=new, id=i)
+                for i, (n, new) in enumerate([(20, 12), (17, 15)])]
+        eng = ServeEngine(m, spec_k=spec_k, **engine)
+        tables = {}
+        reserve = eng.kv.reserve
+
+        def spy(slot, seq_len, prompt=None):
+            tables[tuple(prompt)] = reserve(slot, seq_len, prompt)
+            return tables[tuple(prompt)]
+
+        monkeypatch.setattr(eng.kv, "reserve", spy)
+        rep = eng.run(reqs)
+        assert rep.requests_finished == 2
+        assert [r.prompt_len + r.max_new_tokens for r in reqs] == [32, 32]
+        # the last fed token sits at 30: page 7 holds real positions 28-30
+        last = {r.id: tables[tuple(r.prompt)][-1] for r in reqs}
+        kv = eng.kv
+        return _streams(reqs), {i: (kv.cache_k[:, b, :, :3], kv.cache_v[:, b, :, :3])
+                                for i, b in last.items()}
+
+    plain, plain_pages = run(0)
+    spec, spec_pages = run(3)
+    assert spec == plain
+    for i, (k, v) in spec_pages.items():
+        np.testing.assert_allclose(k.numpy(), plain_pages[i][0].numpy(), atol=1e-5, rtol=0)
+        np.testing.assert_allclose(v.numpy(), plain_pages[i][1].numpy(), atol=1e-5, rtol=0)
 
 
 @pytest.mark.parametrize("asked, used", [(0, 2), (1, 1), (3, 3), (4, 2), (-3, 2)])

@@ -65,14 +65,17 @@ Phases, each printing one JSON line; any failure exits non-zero:
    the identity, so the output shows the dropped probabilities: the
    zeros must fall on the same places), and rows with no visible key
    (output exactly 0); ``causal_cross``, ``causal_tiled_2048`` and
-   ``no_visible_key`` run in bfloat16 as well.  Tolerances, relative to max |reference|: float32
-   2e-5 forward, 1e-4 backward (the kernels sum tile by tile, the plain
-   versions over whole rows); bfloat16 2e-2 (both round the same float32
-   values to bfloat16, at different places for the probabilities).
+   ``no_visible_key`` run in bfloat16 as well, and bfloat16 adds
+   ``slice_d128`` (B 2, H 12, S 512, D 128) and ``dropout_d64`` (B 2,
+   H 12, S 512, D 64, dropout 0.1).  Tolerances, relative to max
+   |reference|: float32 2e-5 forward, 1e-4 backward (the kernels sum
+   tile by tile, the plain versions over whole rows); bfloat16 2e-2 (both
+   round the same float32 values to bfloat16, at different places for
+   the probabilities).
    ``flash_attention_timing`` times each kernel at the slice's shape
    beside its bound, the plain version and
    ``scaled_dot_product_attention`` (forward, and its autograd backward
-   for dQ + dK + dV); the bfloat16 forward also times its first design
+   for dQ + dK + dV); each bfloat16 kernel also times its first design
    (``was_ms``).
 5. ``train``: the training slice's main path, BERT-Base (hidden 768,
    12 heads, ff 3072, 12 layers) on (16, 512, 768) inputs with a 64-class
@@ -82,7 +85,8 @@ Phases, each printing one JSON line; any failure exits non-zero:
    same model from the same weights then trains with ``use_flash=False``
    (the plain ``sdpa`` core): the loss curves must agree within 1e-4
    relative (float32) or 2e-2 (bfloat16).  ``train_profile`` traces 3
-   more float32 steps: device time by kernel and the idle share.
+   more steps of the float32 model, and of the bfloat16 model with flash
+   and with the plain core: device time by kernel and the idle share.
 6. ``kernels``: one line ``{"kernels": [...]}`` with each kernel's
    route, source, the TPU kernel it replaces, launches on its path
    (``paged_attention_quant``: the int8 ``serve_quant`` run, fp8 beside
@@ -784,6 +788,9 @@ def main() -> int:
     flash_case("causal_cross", 2, TH, 128, 256, TD, bf16, True)
     flash_case("causal_tiled_2048", 2, TH, 2048, 2048, TD, bf16, True)
     flash_case("no_visible_key", 2, 4, 384, 256, TD, bf16, True)
+    # the bfloat16 backward at D 128, and its dropout path at D 64
+    flash_case("slice_d128", 2, TH, 512, 512, 128, bf16, False)
+    flash_case("dropout_d64", 2, TH, 512, 512, TD, bf16, False, 0.1, 1234)
 
     def flash_bound(kind, dtype):
         """Least time for one kernel's work at the slice's shape: each
@@ -812,15 +819,18 @@ def main() -> int:
             "fwd": {"ms": time_ms(lambda: fa.flash_fwd(q, k, v)),
                     "plain_ms": time_ms(lambda: fa.flash_attention_fwd_plain(q, k, v))},
         }
-        if dtype == bf16:
-            # the first bfloat16 design, which the redesign replaced
-            res["fwd"]["was_ms"] = time_ms(lambda: fa.flash_fwd(q, k, v, first_design=True))
         res.update({
             "dq": {"ms": time_ms(lambda: fa.flash_bwd_dq(*bwd_args)),
                    "plain_ms": time_ms(lambda: fa.flash_attention_bwd_dq_plain(*bwd_args))},
             "dkv": {"ms": time_ms(lambda: fa.flash_bwd_dkv(*bwd_args)),
                     "plain_ms": time_ms(lambda: fa.flash_attention_bwd_dkv_plain(*bwd_args))},
         })
+        if dtype == bf16:
+            # the first bfloat16 designs, which the redesigns replaced
+            res["fwd"]["was_ms"] = time_ms(lambda: fa.flash_fwd(q, k, v, first_design=True))
+            res["dq"]["was_ms"] = time_ms(lambda: fa.flash_bwd_dq(*bwd_args, first_design=True))
+            res["dkv"]["was_ms"] = time_ms(
+                lambda: fa.flash_bwd_dkv(*bwd_args, first_design=True))
         lq, lk, lv = (t.detach().clone().requires_grad_() for t in (q, k, v))
         lib_out = F.scaled_dot_product_attention(lq, lk, lv)
         lib_fwd = time_ms(lambda: F.scaled_dot_product_attention(lq.detach(), lk.detach(),
@@ -848,7 +858,7 @@ def main() -> int:
                      seed=SEED, device=dev, **BERT_BASE)
     x, y = make_batch(TRAIN_B, TRAIN_S, BERT_BASE["hidden"], TRAIN_CLASSES, SEED)
     train_launches = {}
-    main_model = None
+    traced = {}  # (compute dtype, core): the model whose steps train_profile traces
     for cdt in ("float32", "bfloat16"):
         model = build_model(compute_dtype=cdt, use_flash=True, **train_cfg)
         plain = build_model(compute_dtype=cdt, use_flash=False, **train_cfg)
@@ -886,20 +896,21 @@ def main() -> int:
             raise SystemExit(f"train {cdt}: launches {launches} (expected {expect} each), "
                              f"loss rel err vs sdpa {loss_rel}, finite {finite}")
         train_launches[cdt] = launches
-        del plain
-        if cdt == "float32":
-            main_model = model
-        else:
-            del model
+        traced[(cdt, "flash")] = model
+        if cdt == "bfloat16":
+            traced[(cdt, "sdpa")] = plain
+        del model, plain
         torch.cuda.empty_cache()
 
-    # --- train_profile: 3 more float32 steps, traced --------------------------
-    ex = main_model.executor
-    xs, ys = ex.place(x), ex.place(y)
-    tprof = device_profile(lambda: [ex.train_step([xs], ys) for _ in range(3)])
-    tprof.pop("result")
-    emit({"phase": "train_profile", "compute_dtype": "float32", "steps": 3, **tprof,
-          "card": card})
+    # --- train_profile: 3 more steps of each traced model ----------------------
+    for (cdt, core), model in traced.items():
+        ex = model.executor
+        xs, ys = ex.place(x), ex.place(y)
+        tprof = device_profile(lambda: [ex.train_step([xs], ys) for _ in range(3)])
+        tprof.pop("result")
+        emit({"phase": "train_profile", "compute_dtype": cdt, "core": core, "steps": 3,
+              **tprof, "card": card})
+    del traced
 
     # --- 6. kernels -----------------------------------------------------------
     src = "flexflow_tpu_torch/ops/cuda/csrc/"

@@ -33,10 +33,11 @@
 //   thread keeps a 4 x 4 register tile of scores and a 4 x D/16 tile of
 //   the output, so one shared-memory load feeds several FMAs.
 // * bfloat16 inputs: tensor cores (bfloat16 in, float32 accumulate), with
-//   the score and probability tiles kept in registers.  The backward
-//   kernels and the forward's first design use mma.sync.m16n8k16, one warp
-//   per 16 rows; the forward's default is its Hopper redesign on wgmma
-//   (the section "The bfloat16 forward, redesigned" below).  The casts are
+//   the score and probability tiles kept in registers.  Each kernel's
+//   default is its Hopper redesign on wgmma (the sections "The bfloat16
+//   forward, redesigned" and "The bfloat16 backward, redesigned" below);
+//   the first designs, on mma.sync.m16n8k16 with one warp per 16 rows,
+//   stay only so that the two can be timed side by side.  The casts are
 //   the JAX kernels': matmul inputs stay bfloat16, products accumulate in
 //   float32, p (and ds) round to bfloat16 before their product, outputs
 //   round once.
@@ -50,9 +51,16 @@
 // ring, and puts both products on wgmma; what still holds it back is that
 // each warpgroup runs its S -> softmax -> P.V chain in order, so the tensor
 // cores wait during the softmax, and registers (128 a thread) allow only
-// four warpgroups per SM to cover each other's gaps.  The backward kernels
-// recompute the scores and do more; they do not pipeline their tile loads
-// yet.  The (Sq, Sk) score matrix never reaches device memory.
+// four warpgroups per SM to cover each other's gaps.  The bfloat16 backward
+// kernels recompute the scores and do 6 x D (dQ) and 8 x D (dK/dV) flops per
+// (row, key) pair, so operations bound them; their redesign brings the
+// other side's tiles through a cp.async ring while earlier tiles are
+// computed and runs every product on wgmma.  What still bounds them is the
+// forward's limit, heavier: each warpgroup runs its scores -> ds ->
+// gradient products chain in order, so the tensor cores wait while it forms
+// ds, and registers leave four warpgroups per SM for dQ (128 a thread at
+// D 64) and two for dK/dV (its two float32 accumulators beside the two
+// score tiles).  The (Sq, Sk) score matrix never reaches device memory.
 //
 // Plain C interface (built by nvcc into a shared library, loaded with ctypes);
 // each entry point returns the cudaGetLastError() code after its launch.
@@ -719,9 +727,10 @@ __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst), "l"(src));
 }
 __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-// wait until at most one committed group (the next tile) is in flight
-__device__ __forceinline__ void cp_async_wait_one() {
-  asm volatile("cp.async.wait_group 1;\n" ::);
+// wait until at most N committed groups are in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -1044,7 +1053,7 @@ flash_fwd_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   for (int k0 = 0, it = 0; k0 < k_end; k0 += BN, ++it) {
     const uint32_t cur = kv_base + (it % 2) * 2 * kKVBytes;
     issue_tile(it + 1);  // loads while tile it is computed
-    cp_async_wait_one();
+    cp_async_wait<1>();  // the next tile may still be in flight
     // the copies were generic-proxy writes; wgmma reads through the async proxy
     asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
     __syncthreads();
@@ -1356,6 +1365,403 @@ flash_bwd_dkv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
+// ---------------------------------------------------------------------------
+// The bfloat16 backward, redesigned for Hopper: flash_bwd_dq_wgmma_kernel<D>
+// and flash_bwd_dkv_wgmma_kernel<D> below, built from the forward redesign's
+// pieces.  A block holds two warpgroups of 64 rows of its own side (query rows
+// for dQ, keys for dK/dV), which sits in 128-byte-swizzled shared memory for
+// the whole run; the other side's tiles (K/V for dQ; Q/dO with their lse and
+// delta rows for dK/dV) come through a ring of kBwdStages cp.async stages
+// while the tiles before are computed, with one block barrier per tile.  Both
+// score products (S and dP, or S^T and dP^T) are SS-wgmma with K-major
+// operands; the gradient products take the bfloat16 ds (or p_eff^T, ds^T)
+// from registers as the A operand (RS-wgmma) and read the tile's rows
+// MN-major, as the forward reads V.  The arithmetic is the first designs'
+// above, operation for operation: p = expf(s * scale - lse) zeroed by the
+// mask, ds = p * (gr - delta) in float32 with gr the dropout-scaled dp, p_eff
+// and ds rounded to bfloat16 before their products, float32 accumulation,
+// scale applied to dQ and dK at the store, the dropout hash only when
+// rate > 0.  Visibility is tested only on tiles that cross a row's diagonal.
+// dQ and dK/dV stay two passes with no atomics, as the JAX _flash_bwd has
+// them, so the sums are the same from run to run.
+
+// D (64 x 32, float32) += A (64 x 16) . B (16 x 32), bfloat16, both from shared
+// memory through their descriptors, K-major
+__device__ __forceinline__ void wgmma_ss_m64n32k16(float (&d)[16], uint64_t desc_a,
+                                              uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15"
+      "}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+// descriptor of k-step kk (16 columns, 32 bytes) of a swizzled tile of `rows`
+// rows read K-major (its columns are the product's k)
+__device__ __forceinline__ uint64_t kmajor_desc(uint32_t tile, int rows, int kk) {
+  return sw128_desc(tile + (kk / 4) * (rows * 128) + (kk % 4) * 32, 16, 1024);
+}
+// descriptor of k-step kk (16 rows) of a swizzled tile of `rows` rows read
+// MN-major (its rows are the product's k, its columns the product's n); the
+// column blocks of 64 lie `rows` rows apart
+__device__ __forceinline__ uint64_t mnmajor_desc(uint32_t tile, int rows, int kk) {
+  return sw128_desc(tile + kk * 16 * 128, rows * 128, 1024);
+}
+
+// acc (64 x N) = A . B^T over D: A the warpgroup's 64-row tile at `a`, B an
+// N-row tile at `b`, both (rows x D) swizzled and read K-major
+template <int D, int N>
+__device__ __forceinline__ void wgmma_nt(float (&acc)[N / 2], uint32_t a, uint32_t b) {
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const uint64_t da = kmajor_desc(a, 64, kk), db = kmajor_desc(b, N, kk);
+    if constexpr (N == 32)
+      wgmma_ss_m64n32k16(acc, da, db, kk > 0);
+    else
+      wgmma_ss_m64n64k16(acc, da, db, kk > 0);
+  }
+}
+
+// acc (64 x D) += A . B: A (64 x K) packed bfloat16 fragments in registers, B
+// the K-row tile at `b` (K x D, swizzled, read MN-major)
+template <int D, int K>
+__device__ __forceinline__ void wgmma_nn(float (&acc)[D / 2], const uint32_t (&a)[K / 16][4],
+                                         uint32_t b) {
+#pragma unroll
+  for (int kk = 0; kk < K / 16; ++kk) {
+    if constexpr (D == 64)
+      wgmma_m64n64k16<1>(acc, a[kk], mnmajor_desc(b, K, kk), 1);
+    else
+      wgmma_m64n128k16<1>(acc, a[kk], mnmajor_desc(b, K, kk), 1);
+  }
+}
+
+// a float32 accumulator tile (64 x 8 * NB) as bfloat16 A fragments: n8 blocks
+// 2kk and 2kk + 1 make k-step kk
+template <int NB>
+__device__ __forceinline__ void pack_a(uint32_t (&a)[NB / 2][4], const float (&x)[NB * 4]) {
+#pragma unroll
+  for (int kk = 0; kk < NB / 2; ++kk)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) a[kk][r] = pack_bf16(x[8 * kk + 2 * r], x[8 * kk + 2 * r + 1]);
+}
+
+// dQ's tile step for one thread's two query rows over NB n8 blocks of keys
+// from k0: s (S) becomes ds = p * (gr - delta); dp holds dO.V^T
+template <int NB, bool kMask>
+__device__ __forceinline__ void dq_ds(float (&s)[NB * 4], const float (&dp)[NB * 4],
+                                      const int (&row)[2], const float (&lse)[2],
+                                      const float (&delta)[2], int k0, int off, float scale,
+                                      float rate, float keep, uint32_t seed, int bh) {
+  const int t = threadIdx.x % 4;
+#pragma unroll
+  for (int j = 0; j < NB; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int h = e / 2;
+      const int k_pos = k0 + 8 * j + 2 * t + (e & 1);
+      const bool vis = !kMask || row[h] + off >= k_pos;
+      // a row with no visible key saved lse ~ -1e30: the mask zeroes p
+      const float p = vis ? expf(s[4 * j + e] * scale - lse[h]) : 0.f;
+      float gr = dp[4 * j + e];
+      if (rate > 0.f) {
+        const float u = uniform01(seed, bh, row[h], k_pos);
+        gr = u >= rate ? gr / keep : 0.f;
+      }
+      s[4 * j + e] = p * (gr - delta[h]);
+    }
+}
+
+// dK/dV's tile step for one thread's two keys over NB n8 blocks of queries
+// from q0 (lse_s, delta_s: the tile's rows): s (S^T) becomes p_eff^T, dp
+// (dP^T) becomes ds^T
+template <int NB, bool kMask>
+__device__ __forceinline__ void dkv_ds(float (&s)[NB * 4], float (&dp)[NB * 4],
+                                       const int (&key)[2], const float* lse_s,
+                                       const float* delta_s, int q0, int off, float scale,
+                                       float rate, float keep, uint32_t seed, int bh) {
+  const int t = threadIdx.x % 4;
+#pragma unroll
+  for (int j = 0; j < NB; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int c = 8 * j + 2 * t + (e & 1);
+      const int q_pos = q0 + c, k_pos = key[e / 2];
+      const bool vis = !kMask || q_pos + off >= k_pos;
+      const float p = vis ? expf(s[4 * j + e] * scale - lse_s[c]) : 0.f;
+      float p_eff = p, gr = dp[4 * j + e];
+      if (rate > 0.f) {
+        const float u = uniform01(seed, bh, q_pos, k_pos);
+        const float keep_mask = (u >= rate ? 1.f : 0.f) / keep;
+        p_eff = p * keep_mask;
+        // rounded before the subtraction below, as the JAX kernel and the
+        // plain version round it (a contracted FMA would not)
+        gr = __fmul_rn(gr, keep_mask);
+      }
+      s[4 * j + e] = p_eff;
+      dp[4 * j + e] = p * (gr - delta_s[c]);
+    }
+}
+
+constexpr int kBwdWarpgroups = 2;  // warpgroups (of 64 rows each) per block
+constexpr int kBwdStages = 3;      // stages of the ring
+constexpr int kBwdKeys = 64;       // keys per K/V tile of the dQ ring
+// blocks of dQ at D 64 an SM should hold (__launch_bounds__), which caps its
+// registers at 128 a thread, with no spill; dK/dV and D 128 need more and
+// take one
+constexpr int kDqMinBlocks = 2;
+
+template <int D>
+__global__ void __launch_bounds__(128 * kBwdWarpgroups, D == 64 ? kDqMinBlocks : 1)
+flash_bwd_dq_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                          const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                          const float* __restrict__ lse, const float* __restrict__ delta,
+                          bf16* __restrict__ dq, int sq, int sk, int causal, float scale,
+                          float rate, float keep, uint32_t seed) {
+  constexpr int NWG = kBwdWarpgroups, NS = kBwdStages, BN = kBwdKeys, NB = BN / 8;
+  constexpr uint32_t kRowsBytes = 64 * D * 2;  // one warpgroup's Q or dO tile
+  constexpr uint32_t kKVBytes = BN * D * 2;    // one K or V tile
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  // [Q: NWG tiles][dO: NWG tiles][NS stages: K | V], on 1024 bytes
+  const uint32_t q_base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t do_base = q_base + NWG * kRowsBytes;
+  const uint32_t kv_base = do_base + NWG * kRowsBytes;
+
+  const int bh = blockIdx.y;
+  const int wg = threadIdx.x / 128;
+  const int warp = (threadIdx.x % 128) / 32, g = (threadIdx.x % 32) / 4, t = threadIdx.x % 4;
+  const int q0 = blockIdx.x * 64 * NWG;  // the block's first row
+  const int w0 = q0 + wg * 64;           // this warpgroup's first row
+  const int off = sk - sq;
+  const int row[2] = {w0 + warp * 16 + g, w0 + warp * 16 + g + 8};
+  const bool rows_live = w0 < sq;
+  const bf16* kb = k + (size_t)bh * sk * D;
+  const bf16* vb = v + (size_t)bh * sk * D;
+  int k_end = sk;  // the block's keys; a warpgroup stops at its own diagonal
+  if (causal) k_end = min(sk, max(0, min(sq, q0 + 64 * NWG) + off));
+  int wg_end = rows_live ? sk : 0;
+  if (causal && rows_live) wg_end = min(sk, max(0, w0 + 64 + off));
+
+  // Q and dO of every live warpgroup, then the first K/V tile: one group
+  const int q_rows = min(64 * NWG, sq - q0);
+  for (int w = 0; w < NWG; ++w)
+    if (64 * w < q_rows) {
+      const size_t r0 = (size_t)bh * sq + q0 + 64 * w;
+      issue_rows_sw128<D>(q_base + w * kRowsBytes, q + r0 * D, 64);
+      issue_rows_sw128<D>(do_base + w * kRowsBytes, dout + r0 * D, 64);
+    }
+  // tile i into stage i % NS, as one committed group (empty past the block's keys)
+  auto issue_tile = [&](int i) {
+    if (i * BN < k_end) {
+      const uint32_t st = kv_base + (i % NS) * 2 * kKVBytes;
+      issue_rows_sw128<D>(st, kb + (size_t)i * BN * D, BN);
+      issue_rows_sw128<D>(st + kKVBytes, vb + (size_t)i * BN * D, BN);
+    }
+    cp_async_commit();
+  };
+#pragma unroll
+  for (int i = 0; i < NS - 1; ++i) issue_tile(i);
+
+  float row_lse[2] = {0.f, 0.f}, row_delta[2] = {0.f, 0.f};
+  if (rows_live)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      row_lse[h] = lse[(size_t)bh * sq + row[h]];
+      row_delta[h] = delta[(size_t)bh * sq + row[h]];
+    }
+  float acc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  const uint32_t my_q = q_base + wg * kRowsBytes, my_do = do_base + wg * kRowsBytes;
+
+  for (int k0 = 0, it = 0; k0 < k_end; k0 += BN, ++it) {
+    const uint32_t cur = kv_base + (it % NS) * 2 * kKVBytes;
+    cp_async_wait<NS - 2>();  // tile it has landed
+    // the copies were generic-proxy writes; wgmma reads through the async proxy
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    // every thread's copies are in, and every warpgroup is done with tile
+    // it - 1, whose stage the next issue refills
+    __syncthreads();
+    issue_tile(it + NS - 1);  // loads while tile it is computed
+
+    if (k0 < wg_end) {  // warpgroup-uniform
+      float s[BN / 2], dp[BN / 2];
+#pragma unroll
+      for (int i = 0; i < BN / 2; ++i) s[i] = dp[i] = 0.f;
+      fence_regs(s);
+      fence_regs(dp);
+      wgmma_fence();
+      wgmma_nt<D, BN>(s, my_q, cur);              // S = Q.K^T
+      wgmma_nt<D, BN>(dp, my_do, cur + kKVBytes);  // dP = dO.V^T
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(s);
+      fence_regs(dp);
+      if (causal && k0 + BN - 1 > w0 + off)
+        dq_ds<NB, true>(s, dp, row, row_lse, row_delta, k0, off, scale, rate, keep, seed, bh);
+      else
+        dq_ds<NB, false>(s, dp, row, row_lse, row_delta, k0, off, scale, rate, keep, seed, bh);
+      uint32_t da[BN / 16][4];
+      pack_a<NB>(da, s);
+      fence_regs(acc);
+      wgmma_fence();
+      wgmma_nn<D, BN>(acc, da, cur);  // dQ += dS.K
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(acc);
+    }
+  }
+  // no copy may still be in flight when the block ends: with no visible key
+  // (k_end 0) the loop never waited for Q's group
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+  if (!rows_live) return;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    bf16* drow = dq + ((size_t)bh * sq + row[h]) * D;
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n)
+      *reinterpret_cast<uint32_t*>(drow + 8 * n + 2 * t) =
+          pack_bf16(acc[4 * n + 2 * h] * scale, acc[4 * n + 2 * h + 1] * scale);
+  }
+}
+
+// queries per Q/dO tile of the dK/dV ring: D 128 halves it, so that the two
+// D-wide accumulators and the two score tiles fit in a thread's registers
+template <int D>
+__host__ __device__ constexpr int wgmma_dkv_q_tile() { return D == 128 ? 32 : 64; }
+
+template <int D>
+__global__ void __launch_bounds__(128 * kBwdWarpgroups, 1)
+flash_bwd_dkv_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                           const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                           const float* __restrict__ lse, const float* __restrict__ delta,
+                           bf16* __restrict__ dk, bf16* __restrict__ dv, int sq, int sk,
+                           int causal, float scale, float rate, float keep, uint32_t seed) {
+  constexpr int NWG = kBwdWarpgroups, NS = kBwdStages, BQ = wgmma_dkv_q_tile<D>(), NB = BQ / 8;
+  constexpr uint32_t kKeyBytes = 64 * D * 2;  // one warpgroup's K or V tile
+  constexpr uint32_t kQBytes = BQ * D * 2;    // one Q or dO tile
+  constexpr uint32_t kStageBytes = 2 * kQBytes + 1024;  // Q | dO | lse, delta
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  // [K: NWG tiles][V: NWG tiles][NS stages], each on 1024 bytes
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t k_base = (raw + 1023u) & ~1023u;
+  const uint32_t v_base = k_base + NWG * kKeyBytes;
+  const uint32_t ring = v_base + NWG * kKeyBytes;
+
+  const int bh = blockIdx.y;
+  const int wg = threadIdx.x / 128;
+  const int warp = (threadIdx.x % 128) / 32, g = (threadIdx.x % 32) / 4, t = threadIdx.x % 4;
+  const int k0 = blockIdx.x * 64 * NWG;  // the block's first key
+  const int kw0 = k0 + wg * 64;          // this warpgroup's first key
+  const int off = sk - sq;
+  const int key[2] = {kw0 + warp * 16 + g, kw0 + warp * 16 + g + 8};
+  const bool keys_live = kw0 < sk;
+  const bf16* qb = q + (size_t)bh * sq * D;
+  const bf16* db = dout + (size_t)bh * sq * D;
+  const float* lb = lse + (size_t)bh * sq;
+  const float* deb = delta + (size_t)bh * sq;
+  // the first q tile whose last row can see the block's (the warpgroup's)
+  // first key
+  int q_begin = 0;
+  if (causal) q_begin = max(0, (k0 - off) / BQ * BQ);
+  int wg_begin = keys_live ? 0 : sq;
+  if (causal && keys_live) wg_begin = max(0, (kw0 - off) / BQ * BQ);
+
+  // K and V of every live warpgroup, then the first Q/dO tile: one group
+  const int k_rows = min(64 * NWG, sk - k0);
+  for (int w = 0; w < NWG; ++w)
+    if (64 * w < k_rows) {
+      const size_t r0 = (size_t)bh * sk + k0 + 64 * w;
+      issue_rows_sw128<D>(k_base + w * kKeyBytes, k + r0 * D, 64);
+      issue_rows_sw128<D>(v_base + w * kKeyBytes, v + r0 * D, 64);
+    }
+  // tile i (queries q_begin + i * BQ ..) into stage i % NS with its lse and
+  // delta rows, as one committed group (empty past the last query)
+  auto issue_tile = [&](int i) {
+    const int r0 = q_begin + i * BQ;
+    if (r0 < sq) {
+      const uint32_t st = ring + (i % NS) * kStageBytes;
+      issue_rows_sw128<D>(st, qb + (size_t)r0 * D, BQ);
+      issue_rows_sw128<D>(st + kQBytes, db + (size_t)r0 * D, BQ);
+      for (int idx = threadIdx.x; idx < BQ / 2; idx += blockDim.x) {
+        const int which = idx / (BQ / 4), piece = idx % (BQ / 4);  // 4 floats a piece
+        cp_async16(st + 2 * kQBytes + which * BQ * 4 + piece * 16,
+                   (which ? deb : lb) + r0 + 4 * piece);
+      }
+    }
+    cp_async_commit();
+  };
+#pragma unroll
+  for (int i = 0; i < NS - 1; ++i) issue_tile(i);
+
+  float dk_acc[D / 2], dv_acc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) dk_acc[i] = dv_acc[i] = 0.f;
+  const uint32_t my_k = k_base + wg * kKeyBytes, my_v = v_base + wg * kKeyBytes;
+
+  for (int q0 = q_begin, it = 0; q0 < sq; q0 += BQ, ++it) {
+    const uint32_t cur = ring + (it % NS) * kStageBytes;
+    const float* lse_s = reinterpret_cast<const float*>(smem_raw + (cur - raw) + 2 * kQBytes);
+    const float* delta_s = lse_s + BQ;
+    cp_async_wait<NS - 2>();  // tile it has landed
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    __syncthreads();  // as in dQ: tile it is in, tile it - 1 is done
+    issue_tile(it + NS - 1);  // loads while tile it is computed
+
+    if (q0 >= wg_begin) {  // warpgroup-uniform
+      float s[BQ / 2], dp[BQ / 2];
+#pragma unroll
+      for (int i = 0; i < BQ / 2; ++i) s[i] = dp[i] = 0.f;
+      fence_regs(s);
+      fence_regs(dp);
+      wgmma_fence();
+      wgmma_nt<D, BQ>(s, my_k, cur);             // S^T = K.Q^T
+      wgmma_nt<D, BQ>(dp, my_v, cur + kQBytes);  // dP^T = V.dO^T
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(s);
+      fence_regs(dp);
+      // the tile's first query cannot see the warpgroup's last key
+      if (causal && q0 + off < kw0 + 63)
+        dkv_ds<NB, true>(s, dp, key, lse_s, delta_s, q0, off, scale, rate, keep, seed, bh);
+      else
+        dkv_ds<NB, false>(s, dp, key, lse_s, delta_s, q0, off, scale, rate, keep, seed, bh);
+      uint32_t pa[BQ / 16][4], da[BQ / 16][4];
+      pack_a<NB>(pa, s);
+      pack_a<NB>(da, dp);
+      fence_regs(dv_acc);
+      fence_regs(dk_acc);
+      wgmma_fence();
+      wgmma_nn<D, BQ>(dv_acc, pa, cur + kQBytes);  // dV += P_eff^T.dO
+      wgmma_nn<D, BQ>(dk_acc, da, cur);            // dK += dS^T.Q
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(dv_acc);
+      fence_regs(dk_acc);
+    }
+  }
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+  if (!keys_live) return;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const size_t r = ((size_t)bh * sk + key[h]) * D;
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n) {
+      *reinterpret_cast<uint32_t*>(dk + r + 8 * n + 2 * t) =
+          pack_bf16(dk_acc[4 * n + 2 * h] * scale, dk_acc[4 * n + 2 * h + 1] * scale);
+      *reinterpret_cast<uint32_t*>(dv + r + 8 * n + 2 * t) =
+          pack_bf16(dv_acc[4 * n + 2 * h], dv_acc[4 * n + 2 * h + 1]);
+    }
+  }
+}
+
 constexpr size_t tile_bytes(int d) { return sizeof(float) * kTile * (d + 1); }
 constexpr size_t p_bytes() { return sizeof(float) * kTile * kPLd; }
 
@@ -1420,17 +1826,29 @@ cudaError_t fwd(const void* q, const void* k, const void* v, void* out, float* l
   }
 }
 
+// the backward's bfloat16 inputs take the wgmma redesign, or the first design
+// when `first_design` is set; float32 inputs the FMA kernels
 template <typename T, int D>
 cudaError_t bwd_dq(const void* q, const void* k, const void* v, const void* dout,
                    const float* lse, const float* delta, void* dq, int bh, int sq, int sk,
                    int causal, float scale, float rate, float keep, uint32_t seed,
-                   cudaStream_t s) {
+                   int first_design, cudaStream_t s) {
   if constexpr (std::is_same<T, bf16>::value) {
-    return launch(flash_bwd_dq_mma_kernel<D>, sq / kMmaRows, bh, kMmaThreads,
-                  2 * mma_tile_bytes(D, kMmaRows) + 2 * mma_tile_bytes(D, kTile), s,
-                  static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-                  static_cast<const bf16*>(v), static_cast<const bf16*>(dout), lse, delta,
-                  static_cast<bf16*>(dq), sq, sk, causal, scale, rate, keep, seed);
+    const bf16* qp = static_cast<const bf16*>(q);
+    const bf16* kp = static_cast<const bf16*>(k);
+    const bf16* vp = static_cast<const bf16*>(v);
+    const bf16* dp = static_cast<const bf16*>(dout);
+    bf16* out = static_cast<bf16*>(dq);
+    if (first_design)
+      return launch(flash_bwd_dq_mma_kernel<D>, sq / kMmaRows, bh, kMmaThreads,
+                    2 * mma_tile_bytes(D, kMmaRows) + 2 * mma_tile_bytes(D, kTile), s, qp, kp,
+                    vp, dp, lse, delta, out, sq, sk, causal, scale, rate, keep, seed);
+    constexpr int rows = 64 * kBwdWarpgroups;
+    // Q and dO of each warpgroup, the stages of K and V, and the alignment slack
+    const size_t smem = 2 * (2 * rows + kBwdStages * 2 * kBwdKeys) * (size_t)D + 1024;
+    return launch(flash_bwd_dq_wgmma_kernel<D>, (sq + rows - 1) / rows, bh, 128 * kBwdWarpgroups,
+                  smem, s, qp, kp, vp, dp, lse, delta, out, sq, sk, causal, scale, rate, keep,
+                  seed);
   } else {
     return launch(flash_bwd_dq_kernel<D>, sq / kTile, bh, kThreads,
                   4 * tile_bytes(D) + p_bytes(), s, static_cast<const float*>(q),
@@ -1445,16 +1863,30 @@ template <typename T, int D>
 cudaError_t bwd_dkv(const void* q, const void* k, const void* v, const void* dout,
                     const float* lse, const float* delta, void* dk, void* dv, int bh, int sq,
                     int sk, int causal, float scale, float rate, float keep, uint32_t seed,
-                    cudaStream_t s) {
+                    int first_design, cudaStream_t s) {
   if constexpr (std::is_same<T, bf16>::value) {
-    constexpr int nq = mma_dkv_q_tile<D>();
-    return launch(flash_bwd_dkv_mma_kernel<D>, sk / kMmaRows, bh, kMmaThreads,
-                  2 * mma_tile_bytes(D, kMmaRows) + 2 * mma_tile_bytes(D, nq) +
-                      2 * sizeof(float) * nq,
-                  s, static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-                  static_cast<const bf16*>(v), static_cast<const bf16*>(dout), lse, delta,
-                  static_cast<bf16*>(dk), static_cast<bf16*>(dv), sq, sk, causal, scale, rate,
-                  keep, seed);
+    const bf16* qp = static_cast<const bf16*>(q);
+    const bf16* kp = static_cast<const bf16*>(k);
+    const bf16* vp = static_cast<const bf16*>(v);
+    const bf16* dp = static_cast<const bf16*>(dout);
+    bf16* dkp = static_cast<bf16*>(dk);
+    bf16* dvp = static_cast<bf16*>(dv);
+    if (first_design) {
+      constexpr int nq = mma_dkv_q_tile<D>();
+      return launch(flash_bwd_dkv_mma_kernel<D>, sk / kMmaRows, bh, kMmaThreads,
+                    2 * mma_tile_bytes(D, kMmaRows) + 2 * mma_tile_bytes(D, nq) +
+                        2 * sizeof(float) * nq,
+                    s, qp, kp, vp, dp, lse, delta, dkp, dvp, sq, sk, causal, scale, rate, keep,
+                    seed);
+    }
+    constexpr int rows = 64 * kBwdWarpgroups;
+    // K and V of each warpgroup, the stages of Q and dO (each with its lse
+    // and delta rows on 1024 bytes), and the alignment slack
+    const size_t smem = 2 * (2 * rows + kBwdStages * 2 * wgmma_dkv_q_tile<D>()) * (size_t)D +
+                        (kBwdStages + 1) * 1024;
+    return launch(flash_bwd_dkv_wgmma_kernel<D>, (sk + rows - 1) / rows, bh,
+                  128 * kBwdWarpgroups, smem, s, qp, kp, vp, dp, lse, delta, dkp, dvp, sq, sk,
+                  causal, scale, rate, keep, seed);
   } else {
     return launch(flash_bwd_dkv_kernel<D>, sk / kTile, bh, kThreads,
                   4 * tile_bytes(D) + 2 * p_bytes() + 2 * sizeof(float) * kTile, s,
@@ -1476,8 +1908,8 @@ cudaError_t bwd_dkv(const void* q, const void* k, const void* v, const void* dou
 
 // q (bh, sq, d), k/v (bh, sk, d), out like q, lse float32 (bh, sq); sq and
 // sk multiples of 64, d 64 or 128; all contiguous, in one dtype.
-// `first_design` launches the bfloat16 forward's first design in place of the
-// redesign (for timing the two side by side); float32 inputs ignore it.
+// `first_design` launches a bfloat16 kernel's first design in place of its
+// wgmma redesign (for timing the two side by side); float32 inputs ignore it.
 extern "C" int ff_flash_fwd(const void* q, const void* k, const void* v, void* out, void* lse,
                             int bh, int sq, int sk, int d, int causal, float scale, float rate,
                             float keep, unsigned int seed, int bf16_in, int first_design,
@@ -1491,23 +1923,25 @@ extern "C" int ff_flash_fwd(const void* q, const void* k, const void* v, void* o
 extern "C" int ff_flash_bwd_dq(const void* q, const void* k, const void* v, const void* dout,
                                const void* lse, const void* delta, void* dq, int bh, int sq,
                                int sk, int d, int causal, float scale, float rate, float keep,
-                               unsigned int seed, int bf16_in, void* stream) {
+                               unsigned int seed, int bf16_in, int first_design,
+                               void* stream) {
   if (bad_shape(bh, sq, sk, d)) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   FF_DISPATCH(bwd_dq, q, k, v, dout, static_cast<const float*>(lse),
               static_cast<const float*>(delta), dq, bh, sq, sk, causal, scale, rate, keep, seed,
-              s);
+              first_design, s);
 }
 
 extern "C" int ff_flash_bwd_dkv(const void* q, const void* k, const void* v, const void* dout,
                                 const void* lse, const void* delta, void* dk, void* dv, int bh,
                                 int sq, int sk, int d, int causal, float scale, float rate,
-                                float keep, unsigned int seed, int bf16_in, void* stream) {
+                                float keep, unsigned int seed, int bf16_in,
+                                int first_design, void* stream) {
   if (bad_shape(bh, sq, sk, d)) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   FF_DISPATCH(bwd_dkv, q, k, v, dout, static_cast<const float*>(lse),
               static_cast<const float*>(delta), dk, dv, bh, sq, sk, causal, scale, rate, keep,
-              seed, s);
+              seed, first_design, s);
 }
 
 extern "C" const char* ff_flash_error_string(int code) {

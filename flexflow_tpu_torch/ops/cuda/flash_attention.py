@@ -15,9 +15,10 @@ for bit, so forward and backward rebuild the same mask from the seed.
   its backward ``flash_bwd_dq`` and ``flash_bwd_dkv``, the hand-written
   kernels of ``csrc/flash_attention.cu``, adding one to
   ``LAUNCHES[kind]`` per launch; a build or launch failure raises, and
-  nothing falls back.  On CPU tensors it runs the plain versions.  A
-  bfloat16 forward launches the Hopper redesign on ``wgmma``;
-  ``flash_fwd(..., first_design=True)`` launches the design it replaced,
+  nothing falls back.  On CPU tensors it runs the plain versions.  On
+  bfloat16 inputs each of the three launches its Hopper redesign on
+  ``wgmma``; ``first_design=True`` (keyword-only, on ``flash_fwd``,
+  ``flash_bwd_dq`` and ``flash_bwd_dkv``) launches the design it replaced,
   for timing the two side by side.
 * :func:`flash_attention_fwd_plain`, :func:`flash_attention_bwd_dq_plain`
   and :func:`flash_attention_bwd_dkv_plain` are the plain PyTorch versions
@@ -262,10 +263,10 @@ def _library():
         from flexflow_tpu_torch.ops.cuda import load
 
         lib = load("flash_attention")
+        # bh, sq, sk, d, causal, scale, rate, keep, seed, bf16_in, first_design, stream
         tail = [ctypes.c_int] * 5 + [ctypes.c_float] * 3 + [ctypes.c_uint32, ctypes.c_int,
-                                                             ctypes.c_void_p]
-        lib.ff_flash_fwd.argtypes = [ctypes.c_void_p] * 5 + tail[:-1] + [ctypes.c_int,
-                                                                         ctypes.c_void_p]
+                                                             ctypes.c_int, ctypes.c_void_p]
+        lib.ff_flash_fwd.argtypes = [ctypes.c_void_p] * 5 + tail
         lib.ff_flash_bwd_dq.argtypes = [ctypes.c_void_p] * 7 + tail
         lib.ff_flash_bwd_dkv.argtypes = [ctypes.c_void_p] * 8 + tail
         for fn in (lib.ff_flash_fwd, lib.ff_flash_bwd_dq, lib.ff_flash_bwd_dkv):
@@ -308,22 +309,27 @@ def flash_fwd(q, k, v, causal=False, dropout_rate=0.0, seed=0, *, first_design=F
     return out, lse
 
 
-def flash_bwd_dq(q, k, v, do, lse, delta, causal=False, dropout_rate=0.0, seed=0):
+def flash_bwd_dq(q, k, v, do, lse, delta, causal=False, dropout_rate=0.0, seed=0, *,
+                 first_design=False):
     """dq: the ``flash_bwd_dq`` kernel on CUDA tensors,
-    :func:`flash_attention_bwd_dq_plain` on CPU ones."""
+    :func:`flash_attention_bwd_dq_plain` on CPU ones.  ``first_design``
+    launches the bfloat16 kernel's first design in place of its redesign
+    (for timing; float32 inputs ignore it)."""
     if q.device.type == "cpu":
         return flash_attention_bwd_dq_plain(q, k, v, do, lse, delta, causal, dropout_rate, seed)
     dq = torch.empty_like(q)
     _launch("dq", _library().ff_flash_bwd_dq,
             (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
              delta.data_ptr(), dq.data_ptr()),
-            q, k.shape[2], causal, dropout_rate, seed)
+            q, k.shape[2], causal, dropout_rate, seed, int(bool(first_design)))
     return dq
 
 
-def flash_bwd_dkv(q, k, v, do, lse, delta, causal=False, dropout_rate=0.0, seed=0):
+def flash_bwd_dkv(q, k, v, do, lse, delta, causal=False, dropout_rate=0.0, seed=0, *,
+                  first_design=False):
     """(dk, dv): the ``flash_bwd_dkv`` kernel on CUDA tensors,
-    :func:`flash_attention_bwd_dkv_plain` on CPU ones."""
+    :func:`flash_attention_bwd_dkv_plain` on CPU ones.  ``first_design``
+    as for :func:`flash_bwd_dq`."""
     if q.device.type == "cpu":
         return flash_attention_bwd_dkv_plain(q, k, v, do, lse, delta, causal, dropout_rate,
                                              seed)
@@ -331,7 +337,7 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, causal=False, dropout_rate=0.0, seed=
     _launch("dkv", _library().ff_flash_bwd_dkv,
             (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
              delta.data_ptr(), dk.data_ptr(), dv.data_ptr()),
-            q, k.shape[2], causal, dropout_rate, seed)
+            q, k.shape[2], causal, dropout_rate, seed, int(bool(first_design)))
     return dk, dv
 
 

@@ -71,6 +71,11 @@ CASES = {
     "no_visible_key_rows": (1, 1, 384, 256, 64, True, 0.0, 0, "float32", False),
     "bf16": (1, 2, 256, 256, 64, False, 0.0, 0, "bfloat16", False),
     "bf16_causal_d128": (1, 2, 256, 256, 128, True, 0.0, 0, "bfloat16", False),
+    # the bfloat16 backward's masked paths: diagonal tiles off the main
+    # diagonal, rows that see no key, dropout under the causal mask
+    "bf16_cross_lengths_causal": (2, 2, 128, 256, 64, True, 0.0, 0, "bfloat16", False),
+    "bf16_no_visible_key_rows": (1, 1, 384, 256, 64, True, 0.0, 0, "bfloat16", False),
+    "bf16_dropout_causal_d128": (1, 2, 256, 256, 128, True, 0.1, -7, "bfloat16", False),
     "dropout": (1, 2, 128, 128, 64, False, 0.3, 1234, "float32", False),
     "dropout_causal_negative_seed": (1, 2, 256, 256, 128, True, 0.1, -7, "float32", False),
     "tiled": (1, 2, 256, 256, 64, False, 0.0, 0, "float32", True),

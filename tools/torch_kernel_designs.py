@@ -20,6 +20,14 @@ Prints, one JSON line each:
   H 12, S 512, D 64, and D 128).  Every timing first spins the card
   (``torch.cuda._sleep``) while the host queues the calls, so it is
   device time, not the host's enqueue;
+* ``flash_bwd_check``: the bfloat16 backward's two kernels, dQ and dK/dV,
+  in their first design and their redesign, against the plain versions
+  on the same cases, both from the plain forward's lse and delta
+  (relative errors of dQ, dK and dV; dQ rows that see no key exactly 0;
+  ``equal_first``: whether the redesign's dQ, dK and dV equal the first
+  design's bit for bit);
+* ``flash_bwd_time``: dQ and dK/dV in each design, timed as the forward
+  is, beside SDPA's autograd backward (dQ, dK and dV together);
 * ``paged_quant_check`` / ``paged_quant_time``: the quantized paged
   kernel's row-group path (int8 and float8 pools, q float32 and
   bfloat16, ragged G, a lane at position 0, rows across a split, G 80 in
@@ -64,6 +72,7 @@ FLASH_CASES = [
     ("causal_tiled_2048", 2, 12, 2048, 2048, 64, True, 0.0, 0),
     ("no_visible_key", 2, 4, 384, 256, 64, True, 0.0, 0),
     ("dropout_causal", 2, 4, 512, 512, 128, True, 0.1, -7),
+    ("dropout_d64", 2, 12, 512, 512, 64, False, 0.1, 1234),
 ]
 B, H, D, BS, MB = 8, 12, 64, 16, 64
 SPIN_CYCLES = 2_000_000  # about 1 ms: longer than the host takes to queue a timed call
@@ -197,6 +206,76 @@ def flash_times(designs):
         emit(line)
 
 
+def flash_bwd_checks(designs):
+    for name, Bq, Hq, sq, sk, d, causal, rate, seed in FLASH_CASES:
+        q, k, v = flash_inputs(Bq, Hq, sq, sk, d)
+        do = flash_inputs(Bq, Hq, sq, sk, d, seed=1)[0]
+        out, lse = fa.flash_attention_fwd_plain(q, k, v, causal, rate, seed)
+        args = (q, k, v, do, lse, fa.flash_delta(out, do), causal, rate, seed)
+        p_dq = fa.flash_attention_bwd_dq_plain(*args)
+        p_dk, p_dv = fa.flash_attention_bwd_dkv_plain(*args)
+        live = lse > -1e29
+        outs = {}
+        for design in designs:
+            line = {"phase": "flash_bwd_check", "case": name, "design": design}
+            try:
+                first = design == "first"
+                dq = fa.flash_bwd_dq(*args, first_design=first)
+                dk, dv = fa.flash_bwd_dkv(*args, first_design=first)
+                torch.cuda.synchronize()
+                outs[design] = (dq, dk, dv)
+                line.update(rel_dq=rel(dq, p_dq), rel_dk=rel(dk, p_dk), rel_dv=rel(dv, p_dv),
+                            finite=all(bool(torch.isfinite(t.float()).all())
+                                       for t in (dq, dk, dv)))
+                if not first and "first" in outs:  # dQ, dK, dV bit for bit
+                    line["equal_first"] = [torch.equal(a, b)
+                                           for a, b in zip(outs[design], outs["first"])]
+                if not bool(live.all()):
+                    line["masked_rows_zero"] = bool(
+                        (dq.reshape(Bq * Hq, sq, d)[~live] == 0).all())
+                line["ok"] = (line["finite"] and max(line["rel_dq"], line["rel_dk"],
+                                                     line["rel_dv"]) <= FLASH_TOL
+                              and line.get("masked_rows_zero", True))
+            except RuntimeError as e:
+                line.update(ok=False, error=str(e)[:300])
+            emit(line)
+
+
+def flash_bwd_times(designs):
+    """dQ and dK/dV in each design and SDPA's autograd backward in turns,
+    as :func:`flash_times` does."""
+    for d in (64, 128):
+        q, k, v = flash_inputs(16, 12, 512, 512, d)
+        do = flash_inputs(16, 12, 512, 512, d, seed=1)[0]
+        out, lse = fa.flash_fwd(q, k, v)
+        args = (q, k, v, do, lse, fa.flash_delta(out, do))
+        lq, lk, lv = (t.detach().clone().requires_grad_() for t in (q, k, v))
+        lib_out = F.scaled_dot_product_attention(lq, lk, lv)
+        fns = {}
+        for design in designs:
+            first = design == "first"
+            fns[f"dq_{design}"] = lambda first=first: fa.flash_bwd_dq(*args, first_design=first)
+            fns[f"dkv_{design}"] = lambda first=first: fa.flash_bwd_dkv(*args,
+                                                                        first_design=first)
+        fns["sdpa_bwd"] = lambda: torch.autograd.grad(lib_out, (lq, lk, lv), do,
+                                                      retain_graph=True)
+        flushed = {name: [] for name in fns}
+        b2b = {name: [] for name in fns}
+        for _ in range(3):
+            for name, fn in fns.items():
+                try:
+                    flushed[name] += time_samples(fn, 10)
+                    b2b[name].append(back_to_back_ms(fn))
+                except RuntimeError as e:
+                    flushed[name] = str(e)[:200]
+        line = {"phase": "flash_bwd_time", "B": 16, "H": 12, "S": 512, "D": d}
+        for name in fns:
+            ok = isinstance(flushed[name], list)
+            line[name] = float(np.median(flushed[name])) if ok else flushed[name]
+            line[name + "_b2b"] = float(np.median(b2b[name])) if b2b[name] else None
+        emit(line)
+
+
 def quant_case(rng, G, kv_dtype, pos, q_dtype):
     """chip_smoke.py's quantized case: pages past each lane's view
     poisoned (ints at the maximum, scales 1e4), the trash block with zero
@@ -301,7 +380,9 @@ def main() -> int:
     if "--paged-only" not in sys.argv:
         designs = ["first", "wgmma"]
         flash_checks(designs)
+        flash_bwd_checks(designs)
         flash_times(designs)
+        flash_bwd_times(designs)
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True, text=True)
     emit({"card": card.stdout.strip(), "device": torch.cuda.get_device_name(0)})

@@ -67,16 +67,19 @@ Phases, each printing one JSON line; any failure exits non-zero:
    (output exactly 0); ``causal_cross``, ``causal_tiled_2048`` and
    ``no_visible_key`` run in bfloat16 as well, and bfloat16 adds
    ``slice_d128`` (B 2, H 12, S 512, D 128) and ``dropout_d64`` (B 2,
-   H 12, S 512, D 64, dropout 0.1).  Tolerances, relative to max
-   |reference|: float32 2e-5 forward, 1e-4 backward (the kernels sum
-   tile by tile, the plain versions over whole rows); bfloat16 2e-2 (both
+   H 12, S 512, D 64, dropout 0.1); float32 adds ``slice_d128`` and
+   ``dropout_causal`` (B 2, H 4, S 512, D 128, causal, dropout 0.1), the
+   float32 backward's D 128 kernels with the mask and dropout together.
+   Tolerances, relative to max |reference|: float32 2e-5 forward, 1e-4
+   backward (the kernels sum tile by tile, the plain versions over whole
+   rows; the float32 backward's products are 3xTF32); bfloat16 2e-2 (both
    round the same float32 values to bfloat16, at different places for
    the probabilities).
    ``flash_attention_timing`` times each kernel at the slice's shape
    beside its bound, the plain version and
    ``scaled_dot_product_attention`` (forward, and its autograd backward
-   for dQ + dK + dV); each bfloat16 kernel also times its first design
-   (``was_ms``).
+   for dQ + dK + dV); each redesigned kernel (the bfloat16 three, the
+   float32 dQ and dK/dV) also times its first design (``was_ms``).
 5. ``train``: the training slice's main path, BERT-Base (hidden 768,
    12 heads, ff 3072, 12 layers) on (16, 512, 768) inputs with a 64-class
    pooled head, Adam(1e-4), sparse CCE, 5 steps on one seeded batch, in
@@ -134,11 +137,15 @@ SPLIT_KEYS = 64  # the straddle case's boundary where no page split is planned
 # cycles the card spins before each timed call (about 1 ms at 1.98 GHz)
 SPIN_CYCLES = 2_000_000
 # published peaks of the cards the port runs on (NVIDIA data sheet,
-# dense): HBM bytes/s, float32 non-tensor flop/s (the float32 kernels do
-# their arithmetic on CUDA cores) and bfloat16 tensor-core flop/s (the
-# bound of work done on bfloat16 inputs)
+# dense): HBM bytes/s, TF32 and bfloat16 tensor-core flop/s.  A bound
+# prices bfloat16 products at the bfloat16 rate and float32-accurate
+# products at the fastest rate that holds them for their inputs: 3xTF32
+# for two float32 operands (three TF32 products each: a third of the TF32
+# rate, above the CUDA cores' 67e12), three bfloat16 products (a third of
+# the bfloat16 rate) where one operand is an int8 or e4m3 value
 PEAKS = {
-    "NVIDIA H100 80GB HBM3": (3.35e12, 67e12, 989e12),  # H100 SXM5
+    "NVIDIA H100 80GB HBM3": {"bytes_per_s": 3.35e12, "tf32_flop_per_s": 494.7e12,
+                              "bf16_flop_per_s": 989e12},  # H100 SXM5
 }
 
 
@@ -155,9 +162,11 @@ def card_line() -> str:
 
 
 def peaks(name: str):
+    """(bytes/s, float32-accurate flop/s, bfloat16 flop/s) of the card."""
     if name not in PEAKS:
         raise SystemExit(f"chip_smoke: no data-sheet peaks for {name!r}; add them to PEAKS")
-    return PEAKS[name]
+    p = PEAKS[name]
+    return p["bytes_per_s"], p["tf32_flop_per_s"] / 3, p["bf16_flop_per_s"]
 
 
 def main() -> int:
@@ -183,7 +192,8 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device(DEVICE)
     card = card_line()
-    peak_bw, peak_f32, peak_bf16 = peaks(torch.cuda.get_device_name(0))
+    peak_bw, peak_3xtf32, peak_bf16 = peaks(torch.cuda.get_device_name(0))
+    peak_3xbf16 = peak_bf16 / 3
 
     # --- 1. build -----------------------------------------------------------
     t0 = time.perf_counter()
@@ -358,7 +368,12 @@ def main() -> int:
                   + 4 * int((last + 1).sum()))
         visible = sum(int(pos[b]) + g + 1 for b in range(B) for g in range(G))
         flops = 4 * D * H * visible
-        t_bytes, t_ops = nbytes / peak_bw * 1e3, flops / peak_f32 * 1e3
+        # q is float32 here, so the products are float32-accurate: 3xTF32
+        # over float32 pools; an int8 or e4m3 page is a bfloat16 value, so
+        # over those pools three bfloat16 products (q and the weights split
+        # in three parts) hold float32's products exactly
+        peak_ops = peak_3xtf32 if sk is None else peak_3xbf16
+        t_bytes, t_ops = nbytes / peak_bw * 1e3, flops / peak_ops * 1e3
         return {
             "G": G, "context": ctx, "ms": ms, **was, "plain_ms": plain_ms,
             "library_ms": library_ms, "bound_ms": max(t_bytes, t_ops),
@@ -369,7 +384,7 @@ def main() -> int:
     t_dec = timing(1, 512)
     t_pre = timing(CHUNK, 480)
     emit({"phase": "paged_attention_timing", "decode": t_dec, "prefill": t_pre,
-          "peaks": {"bytes_per_s": peak_bw, "f32_flop_per_s": peak_f32},
+          "peaks": {"bytes_per_s": peak_bw, "f32_3xtf32_flop_per_s": peak_3xtf32},
           "library_call": "scaled_dot_product_attention on K/V pre-gathered at the full "
                           "virtual length (the gather itself not timed)",
           "card": card})
@@ -442,7 +457,7 @@ def main() -> int:
     t_quant = {kv: {"decode": timing(1, 512, kv), "prefill": timing(CHUNK, 480, kv)}
                for kv in ("int8", "fp8")}
     emit({"phase": "paged_attention_quant_timing", **t_quant,
-          "peaks": {"bytes_per_s": peak_bw, "f32_flop_per_s": peak_f32},
+          "peaks": {"bytes_per_s": peak_bw, "f32_3xbf16_flop_per_s": peak_3xbf16},
           "library_call": "scaled_dot_product_attention on K/V pre-gathered and dequantized "
                           "at the full virtual length (neither timed)",
           "card": card})
@@ -791,12 +806,15 @@ def main() -> int:
     # the bfloat16 backward at D 128, and its dropout path at D 64
     flash_case("slice_d128", 2, TH, 512, 512, 128, bf16, False)
     flash_case("dropout_d64", 2, TH, 512, 512, TD, bf16, False, 0.1, 1234)
+    # the float32 backward's D 128 kernels, and their mask and dropout together
+    flash_case("slice_d128", 2, TH, 512, 512, 128, f32, False)
+    flash_case("dropout_causal", 2, 4, 512, 512, 128, f32, True, 0.1, -7)
 
     def flash_bound(kind, dtype):
         """Least time for one kernel's work at the slice's shape: each
         input read once and each output written once, or its matmul flops
         (4 / 6 / 8 x D per (row, key) pair) at the card's peak for the
-        input type, whichever is larger."""
+        input type (float32: 3xTF32), whichever is larger."""
         esize = 4 if dtype == f32 else 2
         bh, s_, d_ = TRAIN_B * TH, TRAIN_S, TD
         mat = bh * s_ * d_ * esize  # one (B, H, S, D) tensor
@@ -805,7 +823,7 @@ def main() -> int:
                   "dkv": 6 * mat + 2 * rows}[kind]
         flops = {"fwd": 4, "dq": 6, "dkv": 8}[kind] * d_ * bh * s_ * s_
         t_bytes = nbytes / peak_bw * 1e3
-        t_ops = flops / (peak_f32 if dtype == f32 else peak_bf16) * 1e3
+        t_ops = flops / (peak_3xtf32 if dtype == f32 else peak_bf16) * 1e3
         return {"bound_ms": max(t_bytes, t_ops),
                 "bound_by": "bytes" if t_bytes >= t_ops else "operations",
                 "bytes": nbytes, "flops": flops}
@@ -825,12 +843,12 @@ def main() -> int:
             "dkv": {"ms": time_ms(lambda: fa.flash_bwd_dkv(*bwd_args)),
                     "plain_ms": time_ms(lambda: fa.flash_attention_bwd_dkv_plain(*bwd_args))},
         })
+        # the first designs, which the redesigns replaced (the float32
+        # forward has one design)
         if dtype == bf16:
-            # the first bfloat16 designs, which the redesigns replaced
             res["fwd"]["was_ms"] = time_ms(lambda: fa.flash_fwd(q, k, v, first_design=True))
-            res["dq"]["was_ms"] = time_ms(lambda: fa.flash_bwd_dq(*bwd_args, first_design=True))
-            res["dkv"]["was_ms"] = time_ms(
-                lambda: fa.flash_bwd_dkv(*bwd_args, first_design=True))
+        res["dq"]["was_ms"] = time_ms(lambda: fa.flash_bwd_dq(*bwd_args, first_design=True))
+        res["dkv"]["was_ms"] = time_ms(lambda: fa.flash_bwd_dkv(*bwd_args, first_design=True))
         lq, lk, lv = (t.detach().clone().requires_grad_() for t in (q, k, v))
         lib_out = F.scaled_dot_product_attention(lq, lk, lv)
         lib_fwd = time_ms(lambda: F.scaled_dot_product_attention(lq.detach(), lk.detach(),
@@ -846,7 +864,7 @@ def main() -> int:
     flash_t = {"float32": flash_timing(f32), "bfloat16": flash_timing(bf16)}
     emit({"phase": "flash_attention_timing", "B": TRAIN_B, "H": TH, "S": TRAIN_S, "D": TD,
           "causal": False, "dropout": 0.0, **flash_t,
-          "peaks": {"bytes_per_s": peak_bw, "f32_flop_per_s": peak_f32,
+          "peaks": {"bytes_per_s": peak_bw, "f32_3xtf32_flop_per_s": peak_3xtf32,
                     "bf16_flop_per_s": peak_bf16},
           "library_call": "scaled_dot_product_attention forward; the dq and dkv rows carry "
                           "its autograd backward (dQ, dK and dV together)",
@@ -938,8 +956,8 @@ def main() -> int:
         entry = {"name": name, "route": "cuda", "source": src + "flash_attention.cu",
                  "replaces": replaces, "launches": train_launches["float32"][kind],
                  "max_abs_err": flash_worst[kind],
-                 **{k: t32[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
-                                        "library_ms")},
+                 **{k: t32[k] for k in ("ms", "was_ms", "plain_ms", "bound_ms", "bound_by",
+                                        "library_ms") if k in t32},
                  "bfloat16": {**{k: t16[k] for k in ("ms", "was_ms", "plain_ms", "bound_ms",
                                                      "bound_by", "library_ms") if k in t16},
                               "launches": train_launches["bfloat16"][kind]}}

@@ -26,12 +26,19 @@
 //
 // Two sets of kernels share that contract:
 //
-// * float32 inputs: the arithmetic runs as float32 FMAs on the CUDA cores
-//   (the tensor cores' float32 path is TF32, which would not hold float32
-//   parity).  Each block of 256 threads stages a 64-row Q tile and 64-row
-//   K/V tiles in shared memory, widened with a padded row stride; each
-//   thread keeps a 4 x 4 register tile of scores and a 4 x D/16 tile of
-//   the output, so one shared-memory load feeds several FMAs.
+// * float32 inputs: the forward runs as float32 FMAs on the CUDA cores.
+//   Each block of 256 threads stages a 64-row Q tile and 64-row K/V tiles in
+//   shared memory, widened with a padded row stride; each thread keeps a
+//   4 x 4 register tile of scores and a 4 x D/16 tile of the output, so one
+//   shared-memory load feeds several FMAs.  The backward's first designs
+//   (flash_bwd_dq_kernel, flash_bwd_dkv_kernel) are built the same way and
+//   stay only so that the redesign can be timed beside them; its default is
+//   its Hopper redesign on the tensor cores ("The float32 backward on the
+//   tensor cores" below).  One TF32 product misses the backward's float32
+//   gate (1e-4 of the plain version) by 8-12x, so each product there is
+//   three (3xTF32: each operand split into a TF32 head and the rest, the
+//   small cross terms summed before the heads'), which meets it, though
+//   not at the FMA kernels' error level (see that section).
 // * bfloat16 inputs: tensor cores (bfloat16 in, float32 accumulate), with
 //   the score and probability tiles kept in registers.  Each kernel's
 //   default is its Hopper redesign on wgmma (the sections "The bfloat16
@@ -42,9 +49,15 @@
 //   float32, p (and ds) round to bfloat16 before their product, outputs
 //   round once.
 //
-// What bounds them on this card.  float32: operations on the CUDA cores (the
-// forward at BERT-Base, S 512, D 64, does 4*S*D = 131k flops per row, far
-// above the H100's balance point).  bfloat16 forward: bytes and operations
+// What bounds them on this card.  float32: operations (the forward at
+// BERT-Base, S 512, D 64, does 4*S*D = 131k flops per row, far above the
+// H100's balance point); the forward runs them on the CUDA cores (67
+// TFLOP/s), the backward's redesign on the tensor cores as 3xTF32 (a third
+// of TF32's 495 TFLOP/s) through a cp.async ring.  What holds the backward
+// back: its three mma.sync a k-step (TF32 wgmma takes no transposed
+// operand) take about half its time, and in dQ the ds step about a third,
+// since the gradient product waits for ds and ds for the score products.
+// bfloat16 forward: bytes and operations
 // nearly alike (about 0.015 ms for Q, K, V and O, 0.013 ms for the flops at
 // 989 TFLOP/s), so the kernel has to keep the tensor cores fed from tiles
 // that arrive while it computes.  The redesign does that with a cp.async
@@ -1762,6 +1775,374 @@ flash_bwd_dkv_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ 
   }
 }
 
+// ---------------------------------------------------------------------------
+// The float32 backward on the tensor cores: flash_bwd_dq_tf32_kernel<D> and
+// flash_bwd_dkv_tf32_kernel<D> below.  Every product is 3xTF32: each
+// operand x splits into hi = x rounded to TF32 (to nearest: half a TF32 step
+// added, the low 13 bits cleared) and lo = x - hi (exact in float32; the tensor
+// core reads its top TF32 bits), and a . b is taken as lo_a . hi_b +
+// hi_a . lo_b + hi_a . hi_b on mma.sync.m16n8k8.tf32 with float32
+// accumulation, the cross terms first.  That carries about 21 bits of each
+// product against TF32's 11, and the products run on the tensor cores at a
+// third of the TF32 rate, 2.5x the CUDA cores' float32 rate.  The sums are
+// less accurate than FMAs' all the same: the tensor core rounds each mma's
+// float32 sum mostly toward zero, so its error is biased and grows with the
+// length of the sum.  On an H100 (tools/torch_tf32_probe.py), 87% of
+// one-step results equal the exact sum rounded toward zero and 63% equal it
+// rounded to nearest; a 3xTF32 dot product of 2048 terms lands 1.4e-5 of
+// the largest result off (to nearest would give 1.0e-6; cuBLAS's FMAs
+// 3.3e-7).  dQ, dK and dV stay within 3.1e-5 of the plain version against
+// FLASH_TOL's 1e-4; one TF32 product lands 7.7e-4 to 1.2e-3 off.
+// Rounding hi to nearest rather than cutting it halves lo, which lowers the
+// error and, on an H100, also ran faster.  The split happens in registers as
+// each fragment is loaded, so the tiles in shared memory stay the inputs' own
+// words.
+//
+// A block of four warps owns 64 rows of its own side (query rows for dQ,
+// keys for dK/dV), 16 a warp, which stay in shared memory for the whole run;
+// the other side's tiles (K/V for dQ; Q/dO with their lse and delta rows for
+// dK/dV) come through a ring of kTfStages cp.async stages with one block
+// barrier per tile, as in the bfloat16 redesign.  TF32 wgmma reads its
+// shared-memory operands K-major only, and the gradient products contract
+// over the tile's rows, so every product runs on mma.sync instead, whose
+// fragments come from shared memory in either direction:
+// * the score products (S and dP, or S^T and dP^T) contract over D, reading
+//   both tiles along their rows 16 bytes at a time (one 16-byte load holds
+//   two k-steps: column t of k-step 2u is d = 16u + 4t, column t + 4 is
+//   d = 16u + 4t + 1, k-step 2u + 1 the next two; A and B alike);
+// * the gradient products contract over the tile's rows with ds (p_eff^T,
+//   ds^T) as A straight from the score accumulators: an accumulator holds
+//   columns 2t and 2t + 1 where an A fragment wants t and t + 4, so the key
+//   (query) order of each k-step is permuted alike in A and B (column t is
+//   key 2t, column t + 4 key 2t + 1) and no value moves between lanes.
+// Rows sit in shared memory unpadded, their 16-byte pieces permuted by
+// tf_swz(row), which keeps both load directions free of bank conflicts.  The
+// arithmetic around the products is the FMA kernels' (dq_ds, dkv_ds: expf(s *
+// scale - lse) zeroed by the mask, ds in float32, the dropout hash only when
+// rate > 0, scale at the store); rows that see no key give 0; dQ and dK/dV
+// stay two passes without atomics, so the sums repeat from run to run.
+constexpr int kTfWarps = 4;                 // warps per block, 16 own rows each
+constexpr int kTfThreads = 32 * kTfWarps;
+constexpr int kTfRows = 16 * kTfWarps;      // own rows per block
+constexpr int kTfStages = 2;                // stages of the ring
+constexpr int kTfKeys = 64;                 // keys per K/V tile of dQ's ring
+// blocks an SM should hold at D 64 (__launch_bounds__); shared memory holds
+// two at D 64 and one at D 128
+constexpr int kTfMinBlocks = 2;
+// queries per Q/dO tile of dK/dV's ring: D 128 halves it, so that the two
+// D-wide accumulators and the two score tiles fit in a thread's registers
+template <int D>
+__host__ __device__ constexpr int tf32_dkv_q_tile() { return D == 128 ? 32 : 64; }
+
+// the permutation of row r's 16-byte pieces (within each 128 bytes)
+__device__ __forceinline__ int tf_swz(int r) { return (r & 6) ^ ((r & 1) << 2); }
+
+// float offset of element (r, c) of a tile of D-float rows
+template <int D>
+__device__ __forceinline__ int tf_at(int r, int c) {
+  return r * D + ((((c >> 2) ^ tf_swz(r)) << 2) | (c & 3));
+}
+
+// Start the copy of `rows` rows of a (S, D) float32 matrix (from `src`) into
+// the tile at shared address `dst`.  Every thread of the block takes pieces.
+template <int D>
+__device__ __forceinline__ void issue_rows_tf(uint32_t dst, const float* __restrict__ src,
+                                              int rows) {
+  constexpr int kChunks = D / 4;
+  for (int idx = threadIdx.x; idx < rows * kChunks; idx += blockDim.x) {
+    const int r = idx / kChunks, c = idx % kChunks;
+    cp_async16(dst + 4 * (r * D + ((c ^ tf_swz(r)) << 2)), src + (size_t)r * D + 4 * c);
+  }
+}
+
+// x = hi + lo: hi x rounded to its TF32 head (to nearest, ties away from 0;
+// the low 13 bits cleared), lo the exact rest (at most half a TF32 step)
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
+  hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+  lo = __float_as_uint(x - __uint_as_float(hi));
+}
+
+// d (one n8 block of a 16 x 8 accumulator) += a . b on m16n8k8.tf32
+__device__ __forceinline__ void mma_tf32(float& d0, float& d1, float& d2, float& d3,
+                                         const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d0), "+f"(d1), "+f"(d2), "+f"(d3)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// n8 block n of `d` += a . b in 3xTF32 (a and b split into hi and lo):
+// lo . hi, hi . lo, hi . hi
+template <int N>
+__device__ __forceinline__ void mma_3xtf32(float (&d)[N], int n, const uint32_t (&ah)[4],
+                                           const uint32_t (&al)[4], uint32_t bh0, uint32_t bh1,
+                                           uint32_t bl0, uint32_t bl1) {
+  mma_tf32(d[4 * n], d[4 * n + 1], d[4 * n + 2], d[4 * n + 3], al, bh0, bh1);
+  mma_tf32(d[4 * n], d[4 * n + 1], d[4 * n + 2], d[4 * n + 3], ah, bl0, bl1);
+  mma_tf32(d[4 * n], d[4 * n + 1], d[4 * n + 2], d[4 * n + 3], ah, bh0, bh1);
+}
+
+// c (16 x 8 NB, accumulator layout, flat: n8 block n at c[4n ..]) = A . B^T
+// over D: A the warp's 16 rows from row `arow` of tile `a`, B the NB * 8 rows
+// of tile `b`
+template <int D, int NB>
+__device__ __forceinline__ void tf_mma_nt(float (&c)[NB * 4], const float* a, int arow,
+                                          const float* b) {
+  const int g = (threadIdx.x % 32) / 4, t = threadIdx.x % 4;
+#pragma unroll
+  for (int i = 0; i < NB * 4; ++i) c[i] = 0.f;
+  // rows g (mod 8) of both tiles: piece 4u + t sits at 4 * ((4u + t) ^ swz)
+  const int swz = tf_swz(g);
+  const int pc[2] = {4 * (t ^ swz), 4 * ((4 | t) ^ swz)};  // u even, u odd
+  const float* a0 = a + (arow + g) * D;
+  const float* b0 = b + g * D;
+#pragma unroll
+  for (int u = 0; u < D / 16; ++u) {
+    const int col = 32 * (u / 2) + pc[u % 2];
+    const float4 x0 = *reinterpret_cast<const float4*>(a0 + col);
+    const float4 x1 = *reinterpret_cast<const float4*>(a0 + 8 * D + col);
+    uint32_t ah[2][4], al[2][4];
+    split_tf32(x0.x, ah[0][0], al[0][0]);
+    split_tf32(x1.x, ah[0][1], al[0][1]);
+    split_tf32(x0.y, ah[0][2], al[0][2]);
+    split_tf32(x1.y, ah[0][3], al[0][3]);
+    split_tf32(x0.z, ah[1][0], al[1][0]);
+    split_tf32(x1.z, ah[1][1], al[1][1]);
+    split_tf32(x0.w, ah[1][2], al[1][2]);
+    split_tf32(x1.w, ah[1][3], al[1][3]);
+#pragma unroll
+    for (int n = 0; n < NB; ++n) {
+      const float4 y = *reinterpret_cast<const float4*>(b0 + 8 * n * D + col);
+      uint32_t bh[4], bl[4];
+      split_tf32(y.x, bh[0], bl[0]);
+      split_tf32(y.y, bh[1], bl[1]);
+      split_tf32(y.z, bh[2], bl[2]);
+      split_tf32(y.w, bh[3], bl[3]);
+      mma_3xtf32(c, n, ah[0], al[0], bh[0], bh[1], bl[0], bl[1]);
+      mma_3xtf32(c, n, ah[1], al[1], bh[2], bh[3], bl[2], bl[3]);
+    }
+  }
+}
+
+// acc (16 x D, accumulator layout) += X . T: X (16 x 8 NB) in accumulator
+// layout (ds, p_eff^T or ds^T), T the tile's first 8 NB rows (8 NB x D).
+// k-step j holds rows 8j .. 8j + 7, column t of A (row t of B) row 8j + 2t and
+// column t + 4 row 8j + 2t + 1, which is where the accumulator has them.
+template <int D, int NB>
+__device__ __forceinline__ void tf_mma_nn(float (&acc)[D / 2], const float (&x)[NB * 4],
+                                          const float* tile) {
+  const int g = (threadIdx.x % 32) / 4, t = threadIdx.x % 4;
+  // element (8j + 2t, 8n + g) sits at piece (2n + g / 4) ^ 2t of its row, and
+  // (8j + 2t + 1, 8n + g) at (2n + g / 4) ^ 2t ^ 4: in floats,
+  // 32 (n / 4) + 8 ((n % 4) ^ t) (even row) or ^ (t ^ 2) (odd row), + g's own
+  int pc[4];
+#pragma unroll
+  for (int m = 0; m < 4; ++m) pc[m] = 8 * (m ^ t) + 4 * (g / 4) + (g % 4);
+  const float* r0 = tile + 2 * t * D;
+#pragma unroll
+  for (int j = 0; j < NB; ++j) {
+    uint32_t ah[4], al[4];
+    split_tf32(x[4 * j + 0], ah[0], al[0]);  // (g, key 2t)
+    split_tf32(x[4 * j + 2], ah[1], al[1]);  // (g + 8, key 2t)
+    split_tf32(x[4 * j + 1], ah[2], al[2]);  // (g, key 2t + 1)
+    split_tf32(x[4 * j + 3], ah[3], al[3]);  // (g + 8, key 2t + 1)
+    const float* re = r0 + 8 * j * D;
+    const float* ro = re + D;
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n) {
+      const int cn = 32 * (n / 4);
+      uint32_t bh0, bl0, bh1, bl1;
+      split_tf32(re[cn + pc[n % 4]], bh0, bl0);
+      split_tf32(ro[cn + pc[(n % 4) ^ 2]], bh1, bl1);
+      mma_3xtf32(acc, n, ah, al, bh0, bh1, bl0, bl1);
+    }
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(kTfThreads, D == 64 ? kTfMinBlocks : 1)
+flash_bwd_dq_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                         const float* __restrict__ v, const float* __restrict__ dout,
+                         const float* __restrict__ lse, const float* __restrict__ delta,
+                         float* __restrict__ dq, int sq, int sk, int causal, float scale,
+                         float rate, float keep, uint32_t seed) {
+  constexpr int NS = kTfStages, BN = kTfKeys, NB = BN / 8;
+  constexpr int kRowsF = kTfRows * D;  // floats of the block's Q (or dO) tile
+  constexpr int kTileF = BN * D;       // floats of one K (or V) tile
+  extern __shared__ __align__(16) float tf_smem[];
+  // [Q][dO][NS stages: K | V]
+  float* qs = tf_smem;
+  float* dos = qs + kRowsF;
+  float* ring = dos + kRowsF;
+
+  const int bh = blockIdx.y;
+  const int warp = threadIdx.x / 32, g = (threadIdx.x % 32) / 4, t = threadIdx.x % 4;
+  const int q0 = blockIdx.x * kTfRows;  // the block's first row
+  const int w0 = q0 + 16 * warp;        // this warp's first row
+  const int off = sk - sq;
+  const int row[2] = {w0 + g, w0 + g + 8};
+  const float* kb = k + (size_t)bh * sk * D;
+  const float* vb = v + (size_t)bh * sk * D;
+  int k_end = sk;  // the block's keys; a warp stops at its own diagonal
+  if (causal) k_end = min(sk, max(0, q0 + kTfRows + off));
+  int w_end = sk;
+  if (causal) w_end = min(sk, max(0, w0 + 16 + off));
+
+  // Q and dO, then the first K/V tile: one group
+  issue_rows_tf<D>(smem_u32(qs), q + ((size_t)bh * sq + q0) * D, kTfRows);
+  issue_rows_tf<D>(smem_u32(dos), dout + ((size_t)bh * sq + q0) * D, kTfRows);
+  // tile i into stage i % NS, as one committed group (empty past the block's keys)
+  auto issue_tile = [&](int i) {
+    if (i * BN < k_end) {
+      float* st = ring + (i % NS) * 2 * kTileF;
+      issue_rows_tf<D>(smem_u32(st), kb + (size_t)i * BN * D, BN);
+      issue_rows_tf<D>(smem_u32(st + kTileF), vb + (size_t)i * BN * D, BN);
+    }
+    cp_async_commit();
+  };
+#pragma unroll
+  for (int i = 0; i < NS - 1; ++i) issue_tile(i);
+
+  float row_lse[2], row_delta[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    row_lse[h] = lse[(size_t)bh * sq + row[h]];
+    row_delta[h] = delta[(size_t)bh * sq + row[h]];
+  }
+  float acc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+
+  for (int k0 = 0, it = 0; k0 < k_end; k0 += BN, ++it) {
+    const float* ks = ring + (it % NS) * 2 * kTileF;
+    const float* vs = ks + kTileF;
+    cp_async_wait<NS - 2>();  // tile it has landed
+    // every thread's copies are in, and every warp is done with tile it - 1,
+    // whose stage the next issue refills
+    __syncthreads();
+    issue_tile(it + NS - 1);  // loads while tile it is computed
+
+    if (k0 < w_end) {  // warp-uniform
+      float s[NB * 4], dp[NB * 4];
+      tf_mma_nt<D, NB>(s, qs, 16 * warp, ks);    // S = Q.K^T
+      tf_mma_nt<D, NB>(dp, dos, 16 * warp, vs);  // dP = dO.V^T
+      if (causal && k0 + BN - 1 > w0 + off)
+        dq_ds<NB, true>(s, dp, row, row_lse, row_delta, k0, off, scale, rate, keep, seed, bh);
+      else
+        dq_ds<NB, false>(s, dp, row, row_lse, row_delta, k0, off, scale, rate, keep, seed, bh);
+      tf_mma_nn<D, NB>(acc, s, ks);  // dQ += dS.K
+    }
+  }
+  // no copy may still be in flight when the block ends: with no visible key
+  // (k_end 0) the loop never waited for Q's group
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    float* drow = dq + ((size_t)bh * sq + row[h]) * D;
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n)
+      *reinterpret_cast<float2*>(drow + 8 * n + 2 * t) =
+          make_float2(acc[4 * n + 2 * h] * scale, acc[4 * n + 2 * h + 1] * scale);
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(kTfThreads, D == 64 ? kTfMinBlocks : 1)
+flash_bwd_dkv_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                          const float* __restrict__ v, const float* __restrict__ dout,
+                          const float* __restrict__ lse, const float* __restrict__ delta,
+                          float* __restrict__ dk, float* __restrict__ dv, int sq, int sk,
+                          int causal, float scale, float rate, float keep, uint32_t seed) {
+  constexpr int NS = kTfStages, BQ = tf32_dkv_q_tile<D>(), NB = BQ / 8;
+  constexpr int kRowsF = kTfRows * D;             // floats of the block's K (or V) tile
+  constexpr int kTileF = BQ * D;                  // floats of one Q (or dO) tile
+  constexpr int kStageF = 2 * kTileF + 2 * BQ;    // Q | dO | lse | delta
+  extern __shared__ __align__(16) float tf_smem[];
+  // [K][V][NS stages]
+  float* ks = tf_smem;
+  float* vs = ks + kRowsF;
+  float* ring = vs + kRowsF;
+
+  const int bh = blockIdx.y;
+  const int warp = threadIdx.x / 32, g = (threadIdx.x % 32) / 4, t = threadIdx.x % 4;
+  const int k0 = blockIdx.x * kTfRows;  // the block's first key
+  const int kw0 = k0 + 16 * warp;       // this warp's first key
+  const int off = sk - sq;
+  const int key[2] = {kw0 + g, kw0 + g + 8};
+  const float* qb = q + (size_t)bh * sq * D;
+  const float* db = dout + (size_t)bh * sq * D;
+  const float* lb = lse + (size_t)bh * sq;
+  const float* deb = delta + (size_t)bh * sq;
+  // the first q tile whose last row can see the block's (the warp's) first key
+  int q_begin = 0, w_begin = 0;
+  if (causal) {
+    q_begin = max(0, (k0 - off) / BQ * BQ);
+    w_begin = max(0, (kw0 - off) / BQ * BQ);
+  }
+
+  // K and V, then the first Q/dO tile: one group
+  issue_rows_tf<D>(smem_u32(ks), k + ((size_t)bh * sk + k0) * D, kTfRows);
+  issue_rows_tf<D>(smem_u32(vs), v + ((size_t)bh * sk + k0) * D, kTfRows);
+  // tile i (queries q_begin + i * BQ ..) into stage i % NS with its lse and
+  // delta rows, as one committed group (empty past the last query)
+  auto issue_tile = [&](int i) {
+    const int r0 = q_begin + i * BQ;
+    if (r0 < sq) {
+      float* st = ring + (i % NS) * kStageF;
+      issue_rows_tf<D>(smem_u32(st), qb + (size_t)r0 * D, BQ);
+      issue_rows_tf<D>(smem_u32(st + kTileF), db + (size_t)r0 * D, BQ);
+      for (int idx = threadIdx.x; idx < BQ / 2; idx += blockDim.x) {
+        const int which = idx / (BQ / 4), piece = idx % (BQ / 4);  // 4 floats a piece
+        cp_async16(smem_u32(st + 2 * kTileF + which * BQ + 4 * piece),
+                   (which ? deb : lb) + r0 + 4 * piece);
+      }
+    }
+    cp_async_commit();
+  };
+#pragma unroll
+  for (int i = 0; i < NS - 1; ++i) issue_tile(i);
+
+  float dk_acc[D / 2], dv_acc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) dk_acc[i] = dv_acc[i] = 0.f;
+
+  for (int q0 = q_begin, it = 0; q0 < sq; q0 += BQ, ++it) {
+    const float* qs = ring + (it % NS) * kStageF;
+    const float* dos = qs + kTileF;
+    const float* lse_s = qs + 2 * kTileF;
+    const float* delta_s = lse_s + BQ;
+    cp_async_wait<NS - 2>();  // tile it has landed
+    __syncthreads();          // as in dQ: tile it is in, tile it - 1 is done
+    issue_tile(it + NS - 1);  // loads while tile it is computed
+
+    if (q0 >= w_begin) {  // warp-uniform
+      float s[NB * 4], dp[NB * 4];
+      tf_mma_nt<D, NB>(s, ks, 16 * warp, qs);    // S^T = K.Q^T
+      tf_mma_nt<D, NB>(dp, vs, 16 * warp, dos);  // dP^T = V.dO^T
+      // the tile's first query cannot see the warp's last key
+      if (causal && q0 + off < kw0 + 15)
+        dkv_ds<NB, true>(s, dp, key, lse_s, delta_s, q0, off, scale, rate, keep, seed, bh);
+      else
+        dkv_ds<NB, false>(s, dp, key, lse_s, delta_s, q0, off, scale, rate, keep, seed, bh);
+      tf_mma_nn<D, NB>(dv_acc, s, dos);  // dV += P_eff^T.dO
+      tf_mma_nn<D, NB>(dk_acc, dp, qs);  // dK += dS^T.Q
+    }
+  }
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const size_t r = ((size_t)bh * sk + key[h]) * D;
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n) {
+      *reinterpret_cast<float2*>(dk + r + 8 * n + 2 * t) =
+          make_float2(dk_acc[4 * n + 2 * h] * scale, dk_acc[4 * n + 2 * h + 1] * scale);
+      *reinterpret_cast<float2*>(dv + r + 8 * n + 2 * t) =
+          make_float2(dv_acc[4 * n + 2 * h], dv_acc[4 * n + 2 * h + 1]);
+    }
+  }
+}
+
 constexpr size_t tile_bytes(int d) { return sizeof(float) * kTile * (d + 1); }
 constexpr size_t p_bytes() { return sizeof(float) * kTile * kPLd; }
 
@@ -1826,8 +2207,9 @@ cudaError_t fwd(const void* q, const void* k, const void* v, void* out, float* l
   }
 }
 
-// the backward's bfloat16 inputs take the wgmma redesign, or the first design
-// when `first_design` is set; float32 inputs the FMA kernels
+// the backward's bfloat16 inputs take the wgmma redesign, float32 inputs the
+// 3xTF32 kernels; `first_design` launches the first design of either (the
+// mma.sync kernels for bfloat16, the FMA kernels for float32)
 template <typename T, int D>
 cudaError_t bwd_dq(const void* q, const void* k, const void* v, const void* dout,
                    const float* lse, const float* delta, void* dq, int bh, int sq, int sk,
@@ -1850,12 +2232,19 @@ cudaError_t bwd_dq(const void* q, const void* k, const void* v, const void* dout
                   smem, s, qp, kp, vp, dp, lse, delta, out, sq, sk, causal, scale, rate, keep,
                   seed);
   } else {
-    return launch(flash_bwd_dq_kernel<D>, sq / kTile, bh, kThreads,
-                  4 * tile_bytes(D) + p_bytes(), s, static_cast<const float*>(q),
-                  static_cast<const float*>(k), static_cast<const float*>(v),
-                  static_cast<const float*>(dout), lse, delta, static_cast<float*>(dq), sq, sk,
-                  causal,
-                  scale, rate, keep, seed);
+    const float* qp = static_cast<const float*>(q);
+    const float* kp = static_cast<const float*>(k);
+    const float* vp = static_cast<const float*>(v);
+    const float* dp = static_cast<const float*>(dout);
+    float* out = static_cast<float*>(dq);
+    if (first_design)
+      return launch(flash_bwd_dq_kernel<D>, sq / kTile, bh, kThreads,
+                    4 * tile_bytes(D) + p_bytes(), s, qp, kp, vp, dp, lse, delta, out, sq, sk,
+                    causal, scale, rate, keep, seed);
+    // Q and dO, and the stages of K and V
+    const size_t smem = sizeof(float) * (2 * kTfRows + kTfStages * 2 * kTfKeys) * (size_t)D;
+    return launch(flash_bwd_dq_tf32_kernel<D>, sq / kTfRows, bh, kTfThreads, smem, s, qp, kp,
+                  vp, dp, lse, delta, out, sq, sk, causal, scale, rate, keep, seed);
   }
 }
 
@@ -1888,12 +2277,22 @@ cudaError_t bwd_dkv(const void* q, const void* k, const void* v, const void* dou
                   128 * kBwdWarpgroups, smem, s, qp, kp, vp, dp, lse, delta, dkp, dvp, sq, sk,
                   causal, scale, rate, keep, seed);
   } else {
-    return launch(flash_bwd_dkv_kernel<D>, sk / kTile, bh, kThreads,
-                  4 * tile_bytes(D) + 2 * p_bytes() + 2 * sizeof(float) * kTile, s,
-                  static_cast<const float*>(q), static_cast<const float*>(k),
-                  static_cast<const float*>(v),
-                  static_cast<const float*>(dout), lse, delta, static_cast<float*>(dk),
-                  static_cast<float*>(dv), sq, sk, causal, scale, rate, keep, seed);
+    const float* qp = static_cast<const float*>(q);
+    const float* kp = static_cast<const float*>(k);
+    const float* vp = static_cast<const float*>(v);
+    const float* dp = static_cast<const float*>(dout);
+    float* dkp = static_cast<float*>(dk);
+    float* dvp = static_cast<float*>(dv);
+    if (first_design)
+      return launch(flash_bwd_dkv_kernel<D>, sk / kTile, bh, kThreads,
+                    4 * tile_bytes(D) + 2 * p_bytes() + 2 * sizeof(float) * kTile, s, qp, kp,
+                    vp, dp, lse, delta, dkp, dvp, sq, sk, causal, scale, rate, keep, seed);
+    // K and V, and the stages of Q and dO with their lse and delta rows
+    constexpr int nq = tf32_dkv_q_tile<D>();
+    const size_t smem =
+        sizeof(float) * (2 * kTfRows * (size_t)D + kTfStages * (2 * nq * (size_t)D + 2 * nq));
+    return launch(flash_bwd_dkv_tf32_kernel<D>, sk / kTfRows, bh, kTfThreads, smem, s, qp, kp,
+                  vp, dp, lse, delta, dkp, dvp, sq, sk, causal, scale, rate, keep, seed);
   }
 }
 
@@ -1908,8 +2307,10 @@ cudaError_t bwd_dkv(const void* q, const void* k, const void* v, const void* dou
 
 // q (bh, sq, d), k/v (bh, sk, d), out like q, lse float32 (bh, sq); sq and
 // sk multiples of 64, d 64 or 128; all contiguous, in one dtype.
-// `first_design` launches a bfloat16 kernel's first design in place of its
-// wgmma redesign (for timing the two side by side); float32 inputs ignore it.
+// `first_design` launches a kernel's first design in place of its redesign (for
+// timing the two side by side): the bfloat16 kernels' mma.sync designs in place
+// of wgmma, and the float32 backward's FMA kernels in place of 3xTF32; the
+// float32 forward has one design and ignores it.
 extern "C" int ff_flash_fwd(const void* q, const void* k, const void* v, void* out, void* lse,
                             int bh, int sq, int sk, int d, int causal, float scale, float rate,
                             float keep, unsigned int seed, int bf16_in, int first_design,

@@ -17,9 +17,13 @@ for bit, so forward and backward rebuild the same mask from the seed.
   ``LAUNCHES[kind]`` per launch; a build or launch failure raises, and
   nothing falls back.  On CPU tensors it runs the plain versions.  On
   bfloat16 inputs each of the three launches its Hopper redesign on
-  ``wgmma``; ``first_design=True`` (keyword-only, on ``flash_fwd``,
-  ``flash_bwd_dq`` and ``flash_bwd_dkv``) launches the design it replaced,
-  for timing the two side by side.
+  ``wgmma``; on float32 inputs the two backward kernels run on the tensor
+  cores as 3xTF32 (each product as three TF32 products of the operands'
+  split halves: within the float32 backward's 1e-4 of the plain version,
+  though farther off than FMAs, as the tensor cores round their float32
+  sums mostly toward zero) and the forward on the CUDA cores.  ``first_design=True`` (keyword-only, on ``flash_fwd``,
+  ``flash_bwd_dq`` and ``flash_bwd_dkv``) launches the design a redesign
+  replaced, for timing the two side by side.
 * :func:`flash_attention_fwd_plain`, :func:`flash_attention_bwd_dq_plain`
   and :func:`flash_attention_bwd_dkv_plain` are the plain PyTorch versions
   of the three kernels, with the same contract (O and a compact float32
@@ -313,8 +317,9 @@ def flash_bwd_dq(q, k, v, do, lse, delta, causal=False, dropout_rate=0.0, seed=0
                  first_design=False):
     """dq: the ``flash_bwd_dq`` kernel on CUDA tensors,
     :func:`flash_attention_bwd_dq_plain` on CPU ones.  ``first_design``
-    launches the bfloat16 kernel's first design in place of its redesign
-    (for timing; float32 inputs ignore it)."""
+    launches the kernel's first design in place of its redesign, for
+    timing: the ``mma.sync`` design for bfloat16 inputs, the FMA design for
+    float32 ones (CPU tensors: the plain version whatever it says)."""
     if q.device.type == "cpu":
         return flash_attention_bwd_dq_plain(q, k, v, do, lse, delta, causal, dropout_rate, seed)
     dq = torch.empty_like(q)

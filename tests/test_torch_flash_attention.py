@@ -248,3 +248,86 @@ def test_attention_op_takes_the_kernel_whenever_its_contract_holds(
     assert out.shape == (1, sq, h * d) and out.dtype == dtype
     assert taken == [want]
 
+
+
+@pytest.mark.parametrize("kernel", ["dq", "dkv"])
+def test_first_design_on_cpu_tensors_returns_the_plain_version(kernel):
+    """``first_design=True`` picks a CUDA kernel's first design; on CPU
+    float32 tensors the wrapper runs the plain version whatever it says."""
+    q, k, v, g = (torch.from_numpy(x) for x in _inputs(1, 2, 256, 256, 64, seed=11))
+    out, lse = tfa.flash_attention_fwd_plain(q, k, v, True)
+    args = (q, k, v, g, lse, tfa.flash_delta(out, g), True, 0.1, 5)
+    wrapper, plain = {"dq": (tfa.flash_bwd_dq, tfa.flash_attention_bwd_dq_plain),
+                      "dkv": (tfa.flash_bwd_dkv, tfa.flash_attention_bwd_dkv_plain)}[kernel]
+    launches = dict(tfa.LAUNCHES)
+    got = wrapper(*args, first_design=True)
+    assert tfa.LAUNCHES == launches
+    want = plain(*args)
+    for a, b in zip(got if kernel == "dkv" else (got,), want if kernel == "dkv" else (want,)):
+        assert a.dtype == torch.float32
+        assert torch.equal(a, b)
+
+
+# --- the float32 backward's 3xTF32 products, emulated in numpy -------------
+# The CUDA kernels (flash_bwd_dq_tf32_kernel, flash_bwd_dkv_tf32_kernel) take
+# every product of float32 operands as three TF32 products on
+# mma.sync.m16n8k8: x = hi + lo with hi = x rounded to TF32 (half a TF32 step
+# added, the low 13 bits cleared) and lo = x - hi, which the tensor core
+# reads cut to TF32; per k-step of 8, lo_a . hi_b, then hi_a . lo_b, then
+# hi_a . hi_b, each summed exactly and added to the float32 accumulator.
+# The emulation rounds each sum to nearest; a tensor core rounds it mostly
+# toward zero (tools/torch_tf32_probe.py), so the kernels land farther off.
+
+def _tf32_split(x):
+    bits = np.ascontiguousarray(x, np.float32).view(np.uint32)
+    hi = ((bits + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(np.float32)
+    lo = (x - hi).astype(np.float32)
+    return hi, (lo.view(np.uint32) & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+def _mm_tf32(a, b, terms):
+    """a (M, K) . b (K, N) float32 as the kernels take it: ``terms`` 3 is
+    3xTF32, 1 a single TF32 product (hi . hi)."""
+    (ah, al), (bh, bl) = _tf32_split(a), _tf32_split(b)
+    pairs = ((al, bh), (ah, bl), (ah, bh)) if terms == 3 else ((ah, bh),)
+    acc = np.zeros((a.shape[0], b.shape[1]), np.float32)
+    for k0 in range(0, a.shape[1], 8):
+        for x, y in pairs:
+            part = x[:, k0:k0 + 8].astype(np.float64) @ y[k0:k0 + 8].astype(np.float64)
+            acc = (acc.astype(np.float64) + part).astype(np.float32)
+    return acc
+
+
+def _bwd_tf32(q, k, v, do, lse, delta, terms):
+    """dq, dk, dv of one head through the kernels' float32 steps."""
+    scale = np.float32(1.0 / np.sqrt(q.shape[-1]))
+    s = _mm_tf32(q, k.T, terms)
+    p = np.exp(s * scale - lse[:, None]).astype(np.float32)
+    ds = (p * (_mm_tf32(do, v.T, terms) - delta[:, None])).astype(np.float32)
+    return (_mm_tf32(ds, k, terms) * scale, _mm_tf32(ds.T, q, terms) * scale,
+            _mm_tf32(p.T, do, terms))
+
+
+@pytest.mark.parametrize("d", [64, 128])
+def test_3xtf32_products_hold_float32_error_level(d):
+    """Through the dQ, dK and dV products, the kernels' 3xTF32 split stays
+    within 1e-4 (FLASH_TOL's float32 backward gate) of a float64
+    computation, relative to max |reference|; a single TF32 product is at
+    least 100x farther off."""
+    q, k, v, g = _inputs(1, 2, 256, 256, d, seed=d)
+    for h in range(2):
+        qh, kh, vh, gh = (x[0, h] for x in (q, k, v, g))
+        q64, k64, v64, g64 = (x.astype(np.float64) for x in (qh, kh, vh, gh))
+        s = q64 @ k64.T / np.sqrt(d)
+        lse = np.log(np.exp(s - s.max(-1, keepdims=True)).sum(-1)) + s.max(-1)
+        p = np.exp(s - lse[:, None])
+        delta = ((p @ v64) * g64).sum(-1)
+        ds = p * (g64 @ v64.T - delta[:, None])
+        want = (ds @ k64 / np.sqrt(d), ds.T @ q64 / np.sqrt(d), p.T @ g64)
+        lse32, delta32 = lse.astype(np.float32), delta.astype(np.float32)
+        three = _bwd_tf32(qh, kh, vh, gh, lse32, delta32, terms=3)
+        one = _bwd_tf32(qh, kh, vh, gh, lse32, delta32, terms=1)
+        for name, w, a, b in zip(("dq", "dk", "dv"), want, three, one):
+            err3, err1 = _rel(a, w), _rel(b, w)
+            assert err3 <= 1e-4, (name, err3)
+            assert err1 >= 100 * err3, (name, err1, err3)

@@ -20,14 +20,18 @@ Prints, one JSON line each:
   H 12, S 512, D 64, and D 128).  Every timing first spins the card
   (``torch.cuda._sleep``) while the host queues the calls, so it is
   device time, not the host's enqueue;
-* ``flash_bwd_check``: the bfloat16 backward's two kernels, dQ and dK/dV,
-  in their first design and their redesign, against the plain versions
-  on the same cases, both from the plain forward's lse and delta
-  (relative errors of dQ, dK and dV; dQ rows that see no key exactly 0;
+* ``flash_bwd_check``: the backward's two kernels, dQ and dK/dV, in
+  bfloat16 and in float32, in their first design and their redesign
+  (bfloat16 ``wgmma``, float32 ``tf32``: 3xTF32 on the tensor cores),
+  against the plain versions on the same cases, both from the plain
+  forward's lse and delta (relative errors of dQ, dK and dV, within 2e-2
+  for bfloat16 and 1e-4 for float32; dQ rows that see no key exactly 0;
   ``equal_first``: whether the redesign's dQ, dK and dV equal the first
   design's bit for bit);
-* ``flash_bwd_time``: dQ and dK/dV in each design, timed as the forward
-  is, beside SDPA's autograd backward (dQ, dK and dV together);
+* ``flash_bwd_time``: dQ and dK/dV in each design and dtype, timed as the
+  forward is, beside SDPA's autograd backward (dQ, dK and dV together;
+  ``sdpa_bwd_kernels`` names the kernels it launched, which shows the
+  backend PyTorch picked);
 * ``paged_quant_check`` / ``paged_quant_time``: the quantized paged
   kernel's row-group path (int8 and float8 pools, q float32 and
   bfloat16, ragged G, a lane at position 0, rows across a split, G 80 in
@@ -62,7 +66,10 @@ from flexflow_tpu_torch.ops.cuda import paged_attention as pa  # noqa: E402
 from flexflow_tpu_torch.serve.kvcache import kv_qmax, pool_bits, quantize_kv  # noqa: E402
 
 DEV = "cuda:0"
-FLASH_TOL = 2e-2  # bfloat16 forward, relative to max |plain|
+FLASH_TOL = 2e-2  # bfloat16, relative to max |plain|
+BWD_TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}  # backward, as chip_smoke.py's
+# the redesign of each backward dtype, beside its first design
+BWD_DESIGNS = {torch.bfloat16: ["first", "wgmma"], torch.float32: ["first", "tf32"]}
 PAGED_TOL = {"float32": (2e-5, 0.0), "bfloat16": (2e-2, 2.0 ** -7)}
 # (name, B, H, Sq, Sk, D, causal, dropout rate, seed)
 FLASH_CASES = [
@@ -147,9 +154,9 @@ def rel(a, b):
     return float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
 
 
-def flash_inputs(Bq, Hq, sq, sk, d, seed=0):
+def flash_inputs(Bq, Hq, sq, sk, d, seed=0, dtype=torch.bfloat16):
     g = torch.Generator(device="cpu").manual_seed(seed + sq + sk + d)
-    return tuple(torch.randn(s, generator=g).to(DEV, torch.bfloat16)
+    return tuple(torch.randn(s, generator=g).to(DEV, dtype)
                  for s in ((Bq, Hq, sq, d), (Bq, Hq, sk, d), (Bq, Hq, sk, d)))
 
 
@@ -206,10 +213,11 @@ def flash_times(designs):
         emit(line)
 
 
-def flash_bwd_checks(designs):
+def flash_bwd_checks(dtype):
+    designs, tol = BWD_DESIGNS[dtype], BWD_TOL[dtype]
     for name, Bq, Hq, sq, sk, d, causal, rate, seed in FLASH_CASES:
-        q, k, v = flash_inputs(Bq, Hq, sq, sk, d)
-        do = flash_inputs(Bq, Hq, sq, sk, d, seed=1)[0]
+        q, k, v = flash_inputs(Bq, Hq, sq, sk, d, dtype=dtype)
+        do = flash_inputs(Bq, Hq, sq, sk, d, seed=1, dtype=dtype)[0]
         out, lse = fa.flash_attention_fwd_plain(q, k, v, causal, rate, seed)
         args = (q, k, v, do, lse, fa.flash_delta(out, do), causal, rate, seed)
         p_dq = fa.flash_attention_bwd_dq_plain(*args)
@@ -217,7 +225,8 @@ def flash_bwd_checks(designs):
         live = lse > -1e29
         outs = {}
         for design in designs:
-            line = {"phase": "flash_bwd_check", "case": name, "design": design}
+            line = {"phase": "flash_bwd_check", "case": name, "design": design,
+                    "dtype": str(dtype).replace("torch.", ""), "tol": tol}
             try:
                 first = design == "first"
                 dq = fa.flash_bwd_dq(*args, first_design=first)
@@ -234,19 +243,31 @@ def flash_bwd_checks(designs):
                     line["masked_rows_zero"] = bool(
                         (dq.reshape(Bq * Hq, sq, d)[~live] == 0).all())
                 line["ok"] = (line["finite"] and max(line["rel_dq"], line["rel_dk"],
-                                                     line["rel_dv"]) <= FLASH_TOL
+                                                     line["rel_dv"]) <= tol
                               and line.get("masked_rows_zero", True))
             except RuntimeError as e:
                 line.update(ok=False, error=str(e)[:300])
             emit(line)
 
 
-def flash_bwd_times(designs):
+def sdpa_kernels(fn):
+    """Names of the device kernels one call of ``fn`` launches."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sorted({evt.name[:120] for evt in prof.events()
+                   if evt.device_type == torch.autograd.DeviceType.CUDA})
+
+
+def flash_bwd_times(dtype):
     """dQ and dK/dV in each design and SDPA's autograd backward in turns,
     as :func:`flash_times` does."""
+    designs = BWD_DESIGNS[dtype]
     for d in (64, 128):
-        q, k, v = flash_inputs(16, 12, 512, 512, d)
-        do = flash_inputs(16, 12, 512, 512, d, seed=1)[0]
+        q, k, v = flash_inputs(16, 12, 512, 512, d, dtype=dtype)
+        do = flash_inputs(16, 12, 512, 512, d, seed=1, dtype=dtype)[0]
         out, lse = fa.flash_fwd(q, k, v)
         args = (q, k, v, do, lse, fa.flash_delta(out, do))
         lq, lk, lv = (t.detach().clone().requires_grad_() for t in (q, k, v))
@@ -268,7 +289,9 @@ def flash_bwd_times(designs):
                     b2b[name].append(back_to_back_ms(fn))
                 except RuntimeError as e:
                     flushed[name] = str(e)[:200]
-        line = {"phase": "flash_bwd_time", "B": 16, "H": 12, "S": 512, "D": d}
+        line = {"phase": "flash_bwd_time", "dtype": str(dtype).replace("torch.", ""),
+                "B": 16, "H": 12, "S": 512, "D": d,
+                "sdpa_bwd_kernels": sdpa_kernels(fns["sdpa_bwd"])}
         for name in fns:
             ok = isinstance(flushed[name], list)
             line[name] = float(np.median(flushed[name])) if ok else flushed[name]
@@ -380,9 +403,11 @@ def main() -> int:
     if "--paged-only" not in sys.argv:
         designs = ["first", "wgmma"]
         flash_checks(designs)
-        flash_bwd_checks(designs)
+        for dtype in (torch.bfloat16, torch.float32):
+            flash_bwd_checks(dtype)
         flash_times(designs)
-        flash_bwd_times(designs)
+        for dtype in (torch.bfloat16, torch.float32):
+            flash_bwd_times(dtype)
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True, text=True)
     emit({"card": card.stdout.strip(), "device": torch.cuda.get_device_name(0)})

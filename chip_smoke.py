@@ -10,51 +10,63 @@ Phases, each printing one JSON line; any failure exits non-zero:
    once) and report the seconds each took.
 2. ``paged_attention``: the CUDA kernel against its plain PyTorch
    version on the card, float32 and bfloat16 (and a float32 query over
-   a bfloat16 pool), G=1 (decode) and G=32
-   (prefill chunk), BS 16, D 64, H 12, scrambled block tables, pages
+   a bfloat16 pool), G=1 (decode: the single pass), G=4 (the verify
+   width) and G=32 (prefill chunk; both on the row-group path, split
+   over pages), BS 16, D 64, H 12, scrambled block tables, pages
    outside each lane's view poisoned with 1e4, starts that straddle a
-   page.  Tolerances, by output dtype: float32 2e-5 absolute (the two
-   sum in different orders: online softmax page by page against one
-   softmax over the gathered row); bfloat16 2e-2 + 2^-7 x |reference|
+   page; then the row-group path's edges: a ragged G of 20
+   (``ragged``), lanes at position 0 whose later splits hold nothing
+   they see (``position_0``), and rows that straddle a split boundary
+   (``straddle``).  Each case must take the route ``split_plan`` gives
+   it, as ``LAUNCHES_BY_ROUTE`` shows.  Tolerances, by output dtype:
+   float32 2e-5 absolute (the two sum in different orders: online
+   softmax page by page, or tile by tile and split by split, against
+   one softmax over the gathered row; the row-group path's products are
+   3xTF32 over float32 pools); bfloat16 2e-2 + 2^-7 x |reference|
    (both round a float32 result to bfloat16, which can land one bfloat16
    step apart).  A page too large for shared memory must raise, and
    the next launch must still succeed.
    Then the kernel, the plain version and ``scaled_dot_product_attention``
-   on pre-gathered K/V are timed at the serve phase's shapes.
+   on pre-gathered K/V are timed at the serve phase's shapes, over
+   float32 pools and over bfloat16 pools (float32 q); at G 32 the timing
+   also times the single pass that the row-group path replaced
+   (``was_ms``).
    ``paged_attention_quant``: the same kernel over int8 and float8 e4m3
    pools with their per-position scale rows, q float32 and bfloat16,
-   G = 1, 4 and 32, with the same tolerances; pages past each lane's view
-   hold ints at the format's maximum with scale rows 1e4, the trash block
-   the same ints with zero scales.  ``paged_attention_quant_timing`` times
-   it at the serve shapes beside its bound (1-byte K/V plus two float32
-   scales per visible position), its plain version and
+   G = 1, 4 and 32 and the three edge cases, with the same tolerances;
+   pages past each lane's view hold ints at the format's maximum with
+   scale rows 1e4, the trash block the same ints with zero scales.
+   ``paged_attention_single_pass``: the single pass at G 32, which the
+   engine takes at a D other than 64 or a BS that does not divide 64,
+   forced (``SPLIT_MIN_ROWS`` above G) over all four pool formats.
+   ``paged_attention_quant_timing`` times the quantized kernel at the
+   serve shapes beside its bound (1-byte K/V plus two float32 scales per
+   visible position), its plain version and
    ``scaled_dot_product_attention`` on pre-gathered dequantized K/V.
-   Three more cases hold the row-group path (split over pages, then
-   combined) at its edges, int8 and fp8, q float32 and bfloat16: a
-   ragged G of 20 (``ragged``), lanes at position 0 whose later splits
-   hold nothing they see (``position_0``), and rows that straddle a
-   split boundary (``straddle``).  The prefill timing also times the
-   single-pass design it replaced (``was_ms``).
 3. ``serve``: the port's main path, ``ServeEngine.run`` at GPT-2-small
    width and depth (hidden 768, 12 heads, ff 3072, 12 layers, vocab
    50257, seq 1024), float32, random weights from a seed, 8 slots,
    block 16, prefill chunk 32, sync_every 4, ``attn="auto"``; 16
    requests with prompts of 128-512 tokens and 32-64 new tokens.  The
-   kernel's launch count is set to 0 just before the run and must equal
-   12 x (decode steps + prefill dispatches) after it.  The same requests
+   kernel's launch counts are set to 0 just before the run; after it the
+   launches must equal 12 x (decode steps + prefill dispatches), by route
+   12 x decode steps on the single pass and 12 x prefill dispatches on
+   the row-group path.  The same requests
    are served again with ``attn="gather"`` and the greedy streams
    compared; both programs are then run on identical inputs and their
    next-token probabilities compared.
-   ``profile`` then traces a separate serve run: device time by kernel
-   and the device's idle share.
+   ``profile`` then traces a separate serve run: device time by kernel,
+   the paged kernel's device time by route, and the device's idle share.
    ``serve_quant`` serves the same requests with ``kv_dtype`` "int8" and
    "fp8": every request must finish with its full budget, the quantized
    kernel's launches must equal 12 x (decode steps + prefill dispatches),
-   one host sync per window; the gather path's streams are compared and
+   by route as the float32 arm's, one host sync per window; the gather
+   path's streams are compared and
    its programs' probabilities must agree within ``QUANT_PROB_TOL``.
    ``serve_spec`` adds speculative decoding (k = 3, a 6-layer draft) over
-   int8 pools: launches 12 x (prefill dispatches + macros) + 6 x 3 x
-   macros, and every stream equal to the plain int8 greedy stream up to
+   int8 pools: launches 12 x (prefill dispatches + macros) on the
+   row-group path + 6 x 3 x macros (the drafts) on the single pass, and
+   every stream equal to the plain int8 greedy stream up to
    the first token whose relative top-2 margin in the plain run is under
    1e-4.  ``profile_quant`` traces the profile run with int8 pools.
    ``serve_w8`` serves with int8 weights and int8 pools.
@@ -93,8 +105,10 @@ Phases, each printing one JSON line; any failure exits non-zero:
 6. ``kernels``: one line ``{"kernels": [...]}`` with each kernel's
    route, source, the TPU kernel it replaces, launches on its path
    (``paged_attention_quant``: the int8 ``serve_quant`` run, fp8 beside
-   it), error against the plain version, times and bound, and
-   ``was_ms`` beside a redesigned kernel's time.  Every time is device
+   it; ``paged_attention``: by route as well), error against the plain
+   version, times and bound, and ``was_ms`` beside a redesigned kernel's
+   time; ``paged_attention`` carries its bfloat16-pool times under
+   ``bfloat16``.  Every time is device
    time: the card spins while the host queues the timed call.
 
 The line before the last is the card's name and power limit from
@@ -247,35 +261,77 @@ def main() -> int:
         return (q.to(dev, q_dtype), pk, pv, sk, sv,
                 torch.from_numpy(pos.astype(np.int32)).to(dev), torch.from_numpy(bt).to(dev))
 
+    def hold(phase, args, scales=(None, None), **info):
+        """One call of the kernel on ``args`` (q, pools, positions, block
+        tables) against the plain version under ``TOL``, on the route
+        ``split_plan`` gives it, which ``LAUNCHES_BY_ROUTE`` must show.
+        Emits the case's line; fails unless it holds.  Returns the max abs
+        error."""
+        q, pk, pv, p_d, bt = args
+        G = q.shape[1]
+        plan = pa.split_plan(G, D, BS, MB, pk.dtype)
+        before = dict(pa.LAUNCHES_BY_ROUTE)
+        got = pa.paged_attention(q, pk, pv, p_d, bt, None, *scales)
+        torch.cuda.synchronize()
+        routes = [r for r in before if pa.LAUNCHES_BY_ROUTE[r] != before[r]]
+        want = pa.paged_attention_plain(q, pk, pv, p_d, bt, None, *scales)
+        err = (got.float() - want.float()).abs()
+        name = str(q.dtype).replace("torch.", "")  # the output's dtype
+        atol, rtol = TOL[name]
+        route = "single" if plan is None else "split"
+        ok = (routes == [route] and bool(torch.isfinite(got.float()).all())
+              and bool((err <= atol + rtol * want.float().abs()).all()))
+        max_err = float(err.max())
+        emit({"phase": phase, **info, "q_dtype": name,
+              "pool_dtype": str(pk.dtype).replace("torch.", ""), "G": G, "B": B, "H": H,
+              "D": D, "BS": BS, "MB": MB, "route": routes, "plan": plan,
+              "positions": p_d.tolist(), "max_abs_err": max_err,
+              "rel_err": max_err / float(want.float().abs().max()),
+              "atol": atol, "rtol": rtol, "ok": ok})
+        if not ok:
+            raise SystemExit(f"{phase} {info} q {q.dtype} pool {pk.dtype} G={G}: the kernel "
+                             f"took route {routes} (expected {route}) or disagrees with the "
+                             f"plain version (max abs err {max_err})")
+        return max_err
+
+    def spread(G):
+        """Row 0 mid-page in a random page, so the G rows run across a page
+        boundary."""
+        return np.minimum(BS * rng.integers(0, MB, size=B) + BS // 2 + np.arange(B),
+                          MB * BS - G)
+
+    def edge(label, G, pool_dtype):
+        """Positions of the row-group path's edge cases: a ragged G
+        (``ragged``), lanes at position 0 whose later splits hold nothing
+        they see (``position_0``), rows that straddle a split boundary
+        (pages_per_split x BS keys; ``straddle``)."""
+        pos = spread(G)
+        if label == "position_0":
+            pos[: B // 2] = 0
+        if label == "straddle":
+            plan = pa.split_plan(G, D, BS, MB, pool_dtype)
+            bound = plan[1] * BS if plan else SPLIT_KEYS
+            pos = np.minimum(bound * (1 + np.arange(B)) - G // 2, MB * BS - G)
+        return pos
+
     rng = np.random.default_rng(SEED)
-    worst = 0.0
     f32, bf16 = torch.float32, torch.bfloat16
     # (q dtype, pool dtype): the engine's float32 and bfloat16 pools, and
     # a float32 engine over a bfloat16 pool (kv_dtype="bf16")
-    for q_dtype, dtype in ((f32, f32), (bf16, bf16), (f32, bf16)):
-        for G in (1, CHUNK):
-            # row 0 mid-page, so the G rows run across a page boundary
-            pos = np.minimum(
-                BS * rng.integers(0, MB, size=B) + BS // 2 + np.arange(B), MB * BS - G)
-            args = case(rng, G, dtype, pos, q_dtype)
-            got = pa.paged_attention(*args)
-            torch.cuda.synchronize()
-            want = pa.paged_attention_plain(*args)
-            err = (got.float() - want.float()).abs()
-            name = str(q_dtype).replace("torch.", "")  # the output's dtype
-            atol, rtol = TOL[name]
-            ok = bool(torch.isfinite(got.float()).all()) and bool(
-                (err <= atol + rtol * want.float().abs()).all())
-            max_err = float(err.max())
+    FLOAT_PAIRS = ((f32, f32), (bf16, bf16), (f32, bf16))
+    worst = {}  # pool dtype -> max abs err over the float32-q cases
+    for q_dtype, dtype in FLOAT_PAIRS:
+        # decode (the single pass), the verify width and the prefill chunk
+        # (the row-group path), then the row-group path's edges
+        cases = [(None, G) for G in (1, 4, CHUNK)]
+        cases += [(label, 20) for label in ("ragged", "position_0", "straddle")]
+        for label, G in cases:
+            pos = spread(G) if label is None else edge(label, G, dtype)
+            err = hold("paged_attention", case(rng, G, dtype, pos, q_dtype),
+                       **({} if label is None else {"case": label}))
             if q_dtype == f32:
-                worst = max(worst, max_err)
-            emit({"phase": "paged_attention", "q_dtype": name,
-                  "pool_dtype": str(dtype).replace("torch.", ""), "G": G, "B": B, "H": H,
-                  "D": D, "BS": BS, "MB": MB, "positions": pos.tolist(),
-                  "max_abs_err": max_err, "atol": atol, "rtol": rtol, "ok": ok})
-            if not ok:
-                raise SystemExit(f"paged_attention q {q_dtype} pool {dtype} G={G}: kernel "
-                                 f"disagrees with the plain version (max abs err {max_err})")
+                key = str(dtype).replace("torch.", "")
+                worst[key] = max(worst.get(key, 0.0), err)
 
     # a page too large for shared memory is refused by the launcher, and
     # the refusal leaves no error behind for the next launch
@@ -320,16 +376,17 @@ def main() -> int:
             times.append(e0.elapsed_time(e1))
         return float(np.median(times))
 
-    def timing(G, ctx, kv_dtype=None):
+    def timing(G, ctx, pool="float32"):
         """The kernel at the serve phase's shapes: 8 lanes whose row 0 sits
-        at ``ctx``; a float32 pool, or an int8/fp8 one with its scales."""
+        at ``ctx``, q float32; a float32 or bfloat16 pool, or an int8/fp8
+        one with its scales."""
         pos = np.full(B, ctx, np.int64)
         rng_t = np.random.default_rng(SEED + G)
-        if kv_dtype is None:
-            q, pk, pv, p_d, bt = case(rng_t, G, torch.float32, pos)
+        if pool in ("float32", "bfloat16"):
+            q, pk, pv, p_d, bt = case(rng_t, G, getattr(torch, pool), pos, torch.float32)
             sk = sv = None
         else:
-            q, pk, pv, sk, sv, p_d, bt = quant_case(rng_t, G, kv_dtype, pos, torch.float32)
+            q, pk, pv, sk, sv, p_d, bt = quant_case(rng_t, G, pool, pos, torch.float32)
         scale = 1.0 / math.sqrt(D)
 
         def dense(pool, sc):  # (B, H, SV, D) float32, dequantized
@@ -369,10 +426,10 @@ def main() -> int:
         visible = sum(int(pos[b]) + g + 1 for b in range(B) for g in range(G))
         flops = 4 * D * H * visible
         # q is float32 here, so the products are float32-accurate: 3xTF32
-        # over float32 pools; an int8 or e4m3 page is a bfloat16 value, so
-        # over those pools three bfloat16 products (q and the weights split
-        # in three parts) hold float32's products exactly
-        peak_ops = peak_3xtf32 if sk is None else peak_3xbf16
+        # over float32 pools; a bfloat16, int8 or e4m3 page is a bfloat16
+        # value, so over those pools three bfloat16 products (q and the
+        # weights split in three parts) hold float32's products exactly
+        peak_ops = peak_3xtf32 if pk.dtype == torch.float32 else peak_3xbf16
         t_bytes, t_ops = nbytes / peak_bw * 1e3, flops / peak_ops * 1e3
         return {
             "G": G, "context": ctx, "ms": ms, **was, "plain_ms": plain_ms,
@@ -383,8 +440,11 @@ def main() -> int:
 
     t_dec = timing(1, 512)
     t_pre = timing(CHUNK, 480)
+    t_bf = {"decode": timing(1, 512, "bfloat16"), "prefill": timing(CHUNK, 480, "bfloat16")}
     emit({"phase": "paged_attention_timing", "decode": t_dec, "prefill": t_pre,
-          "peaks": {"bytes_per_s": peak_bw, "f32_3xtf32_flop_per_s": peak_3xtf32},
+          "bfloat16": t_bf,
+          "peaks": {"bytes_per_s": peak_bw, "f32_3xtf32_flop_per_s": peak_3xtf32,
+                    "f32_3xbf16_flop_per_s": peak_3xbf16},
           "library_call": "scaled_dot_product_attention on K/V pre-gathered at the full "
                           "virtual length (the gather itself not timed)",
           "card": card})
@@ -393,67 +453,32 @@ def main() -> int:
     quant_worst = {}  # kv dtype -> max abs err over the float32-q cases
     for kv_dtype in ("int8", "fp8"):
         for q_dtype in (f32, bf16):
-            for G in (1, 4, CHUNK):
-                pos = np.minimum(
-                    BS * rng.integers(0, MB, size=B) + BS // 2 + np.arange(B), MB * BS - G)
-                args = quant_case(rng, G, kv_dtype, pos, q_dtype)
-                q, pk, pv, sk, sv, p_d, bt = args
-                got = pa.paged_attention(q, pk, pv, p_d, bt, None, sk, sv)
-                torch.cuda.synchronize()
-                want = pa.paged_attention_plain(q, pk, pv, p_d, bt, None, sk, sv)
-                err = (got.float() - want.float()).abs()
-                name = str(q_dtype).replace("torch.", "")
-                atol, rtol = TOL[name]
-                ok = bool(torch.isfinite(got.float()).all()) and bool(
-                    (err <= atol + rtol * want.float().abs()).all())
-                max_err = float(err.max())
-                if q_dtype == f32:
-                    quant_worst[kv_dtype] = max(quant_worst.get(kv_dtype, 0.0), max_err)
-                emit({"phase": "paged_attention_quant", "kv_dtype": kv_dtype, "q_dtype": name,
-                      "pool_dtype": str(pk.dtype).replace("torch.", ""), "G": G, "B": B,
-                      "H": H, "D": D, "BS": BS, "MB": MB, "positions": pos.tolist(),
-                      "max_abs_err": max_err,
-                      "rel_err": max_err / float(want.float().abs().max()),
-                      "atol": atol, "rtol": rtol, "ok": ok})
-                if not ok:
-                    raise SystemExit(f"paged_attention_quant {kv_dtype} q {q_dtype} G={G}: "
-                                     f"kernel disagrees with the plain version "
-                                     f"(max abs err {max_err})")
-    # the row-group path's edges: a ragged G, a lane at position 0 (its
-    # later splits hold nothing it sees), rows that straddle a split
-    # boundary (pages_per_split x BS keys)
-    for kv_dtype in ("int8", "fp8"):
-        for q_dtype in (f32, bf16):
-            for label, G in (("ragged", 20), ("position_0", 20), ("straddle", 20)):
-                pos = np.minimum(
-                    BS * rng.integers(0, MB, size=B) + BS // 2 + np.arange(B), MB * BS - G)
-                plan = pa.split_plan(G, D, BS, MB, torch.int8)
-                if label == "position_0":
-                    pos[: B // 2] = 0
-                if label == "straddle":
-                    bound = plan[1] * BS if plan else SPLIT_KEYS
-                    pos = np.minimum(bound * (1 + np.arange(B)) - G // 2, MB * BS - G)
+            # G 1, 4 and 32 as over the float pools, then the row-group
+            # path's edges
+            cases = [(None, G) for G in (1, 4, CHUNK)]
+            cases += [(label, 20) for label in ("ragged", "position_0", "straddle")]
+            for label, G in cases:
+                pos = spread(G) if label is None else edge(label, G, torch.int8)
                 q, pk, pv, sk, sv, p_d, bt = quant_case(rng, G, kv_dtype, pos, q_dtype)
-                got = pa.paged_attention(q, pk, pv, p_d, bt, None, sk, sv)
-                torch.cuda.synchronize()
-                want = pa.paged_attention_plain(q, pk, pv, p_d, bt, None, sk, sv)
-                err = (got.float() - want.float()).abs()
-                name = str(q_dtype).replace("torch.", "")
-                atol, rtol = TOL[name]
-                ok = bool(torch.isfinite(got.float()).all()) and bool(
-                    (err <= atol + rtol * want.float().abs()).all())
-                max_err = float(err.max())
+                err = hold("paged_attention_quant", (q, pk, pv, p_d, bt), (sk, sv),
+                           kv_dtype=kv_dtype, **({} if label is None else {"case": label}))
                 if q_dtype == f32:
-                    quant_worst[kv_dtype] = max(quant_worst[kv_dtype], max_err)
-                emit({"phase": "paged_attention_quant", "case": label, "kv_dtype": kv_dtype,
-                      "q_dtype": name, "G": G, "plan": plan, "positions": pos.tolist(),
-                      "max_abs_err": max_err,
-                      "rel_err": max_err / float(want.float().abs().max()),
-                      "atol": atol, "rtol": rtol, "ok": ok})
-                if not ok:
-                    raise SystemExit(f"paged_attention_quant {label} {kv_dtype} q {q_dtype}: "
-                                     f"kernel disagrees with the plain version "
-                                     f"(max abs err {max_err})")
+                    quant_worst[kv_dtype] = max(quant_worst.get(kv_dtype, 0.0), err)
+    # the single pass at G >= 2, which the engine takes at a D other than 64
+    # or a BS that does not divide 64: forced here at G 32 over every pool
+    # format, as timing() forces it for was_ms
+    keep, pa.SPLIT_MIN_ROWS = pa.SPLIT_MIN_ROWS, CHUNK + 1
+    try:
+        for q_dtype, dtype in FLOAT_PAIRS:
+            hold("paged_attention_single_pass", case(rng, CHUNK, dtype, spread(CHUNK), q_dtype))
+        for kv_dtype in ("int8", "fp8"):
+            for q_dtype in (f32, bf16):
+                q, pk, pv, sk, sv, p_d, bt = quant_case(rng, CHUNK, kv_dtype, spread(CHUNK),
+                                                        q_dtype)
+                hold("paged_attention_single_pass", (q, pk, pv, p_d, bt), (sk, sv),
+                     kv_dtype=kv_dtype)
+    finally:
+        pa.SPLIT_MIN_ROWS = keep
     t_quant = {kv: {"decode": timing(1, 512, kv), "prefill": timing(CHUNK, 480, kv)}
                for kv in ("int8", "fp8")}
     emit({"phase": "paged_attention_quant_timing", **t_quant,
@@ -466,6 +491,8 @@ def main() -> int:
     def zero_counts():
         pa.LAUNCHES = 0
         pa.LAUNCHES_BY_POOL.clear()
+        for route in pa.LAUNCHES_BY_ROUTE:
+            pa.LAUNCHES_BY_ROUTE[route] = 0
         for kind in fa.LAUNCHES:
             fa.LAUNCHES[kind] = 0
 
@@ -481,8 +508,17 @@ def main() -> int:
     torch.cuda.synchronize()
     rep = eng.run(reqs)
     launches_serve = launches = pa.LAUNCHES
+    by_route_serve = dict(pa.LAUNCHES_BY_ROUTE)
     layers = GPT2_SMALL["num_layers"]
     expect = layers * (rep.decode_steps + rep.prefill_dispatches)
+
+    def routes(decode, prefill):
+        """Launches by route when ``decode`` calls run at G 1 (the single
+        pass) and ``prefill`` at G >= 2 (prefill chunks, verifies: the
+        row-group path), one per layer each."""
+        return {"single": decode, "split": prefill}
+
+    expect_route = routes(layers * rep.decode_steps, layers * rep.prefill_dispatches)
     tokens_ok = all(
         len(r.tokens) == r.max_new_tokens and all(0 <= t < VOCAB for t in r.tokens)
         for r in reqs)
@@ -496,11 +532,14 @@ def main() -> int:
         "decode_steps": rep.decode_steps, "prefill_dispatches": rep.prefill_dispatches,
         "prefill_chunks": rep.prefill_chunks, "requests_finished": rep.requests_finished,
         "paged_attention_launches": launches, "expected_launches": expect,
+        "launches_by_route": by_route_serve, "expected_by_route": expect_route,
         "peak_mem_bytes": torch.cuda.max_memory_allocated(), "card": card,
     }
     emit(serve)
     if not (launches > 0 and launches == expect):
         raise SystemExit(f"paged_attention launches {launches} != {expect}")
+    if by_route_serve != expect_route:
+        raise SystemExit(f"paged_attention launches by route {by_route_serve} != {expect_route}")
     if rep.host_syncs != rep.windows:
         raise SystemExit(f"host_syncs {rep.host_syncs} != windows {rep.windows}")
     if rep.requests_finished != spec.n_requests or not tokens_ok:
@@ -580,6 +619,7 @@ def main() -> int:
         torch.cuda.synchronize()
         r = e.run(rs)
         launches, by_pool = pa.LAUNCHES, dict(pa.LAUNCHES_BY_POOL)
+        by_route = dict(pa.LAUNCHES_BY_ROUTE)
         full = all(len(q.tokens) == q.max_new_tokens and all(0 <= t < VOCAB for t in q.tokens)
                    for q in rs)
         line = {"phase": phase, "model": "GPT2_SMALL", "layers": layers, "dtype": "float32",
@@ -591,7 +631,8 @@ def main() -> int:
                 "tpot_p99_ms": r.tpot_p99_ms, "host_syncs": r.host_syncs, "windows": r.windows,
                 "decode_steps": r.decode_steps, "prefill_dispatches": r.prefill_dispatches,
                 "requests_finished": r.requests_finished, "full_budgets": full,
-                "paged_attention_launches": launches, "launches_by_pool": by_pool}
+                "paged_attention_launches": launches, "launches_by_pool": by_pool,
+                "launches_by_route": by_route}
         if not (full and r.requests_finished == spec.n_requests):
             raise SystemExit(f"{phase}: not every request finished with its full budget")
         if r.host_syncs != r.windows:
@@ -641,10 +682,14 @@ def main() -> int:
         expect = layers * (r_q.decode_steps + r_q.prefill_dispatches)
         pool_name = str(e_q.kv.dtype).replace("torch.", "")
         line["expected_launches"] = expect
+        line["expected_by_route"] = routes(layers * r_q.decode_steps,
+                                           layers * r_q.prefill_dispatches)
         if not (line["paged_attention_launches"] == expect > 0
-                and line["launches_by_pool"] == {pool_name: expect}):
+                and line["launches_by_pool"] == {pool_name: expect}
+                and line["launches_by_route"] == line["expected_by_route"]):
             raise SystemExit(f"serve_quant {kv_dtype}: launches {line['launches_by_pool']} "
-                             f"!= {{{pool_name!r}: {expect}}}")
+                             f"!= {{{pool_name!r}: {expect}}}, or by route "
+                             f"{line['launches_by_route']} != {line['expected_by_route']}")
         e_g, rs_g, r_g, _, _ = serve_arm("serve_quant_gather", attn="gather", kv_dtype=kv_dtype)
         if pa.LAUNCHES:
             raise SystemExit(f"serve_quant {kv_dtype}: attn='gather' launched the kernel")
@@ -673,6 +718,10 @@ def main() -> int:
     W = SPEC_K + 1
     macros = r_s.decode_steps // W
     expect = layers * (r_s.prefill_dispatches + macros) + SPEC_DRAFT * SPEC_K * macros
+    # drafts at G 1 take the single pass; verifies (G 4) and prefill chunks
+    # the row-group path
+    expect_route = routes(SPEC_DRAFT * SPEC_K * macros,
+                          layers * (r_s.prefill_dispatches + macros))
     diverged = []
     for a, p_ in zip(rs_s, rs_p):
         k = next((i for i, (x, y) in enumerate(zip(a.tokens, p_.tokens)) if x != y), None)
@@ -687,7 +736,7 @@ def main() -> int:
     line.update({"spec_k": r_s.spec_k, "spec_draft_layers": r_s.spec_draft_layers,
                  "spec_accept_rate": r_s.spec_accept_rate, "spec_drafted": r_s.spec_drafted,
                  "spec_accepted": r_s.spec_accepted, "macros": macros,
-                 "expected_launches": expect,
+                 "expected_launches": expect, "expected_by_route": expect_route,
                  "streams_identical_to_plain_int8": len(rs_s) - len(diverged),
                  "diverged": diverged, "margin_threshold_rel": SPEC_MARGIN,
                  "reference_streams_equal_to_serve_quant_int8": compare_streams(
@@ -695,8 +744,10 @@ def main() -> int:
                  "card": card})
     emit(line)
     if not (line["paged_attention_launches"] == expect > 0
-            and line["launches_by_pool"] == {"int8": expect}):
-        raise SystemExit(f"serve_spec: launches {line['launches_by_pool']} != {expect}")
+            and line["launches_by_pool"] == {"int8": expect}
+            and line["launches_by_route"] == expect_route):
+        raise SystemExit(f"serve_spec: launches {line['launches_by_pool']} != {expect}, or by "
+                         f"route {line['launches_by_route']} != {expect_route}")
     if not ok_streams:
         raise SystemExit(f"serve_spec: streams left the plain int8 greedy stream before a "
                          f"token whose top-2 margin is under {SPEC_MARGIN}: {diverged}")
@@ -715,13 +766,16 @@ def main() -> int:
 
     e_w, rs_w, r_w, line, _ = serve_arm("serve_w8", kv_dtype="int8", weight_dtype="int8")
     expect = layers * (r_w.decode_steps + r_w.prefill_dispatches)
+    expect_route = routes(layers * r_w.decode_steps, layers * r_w.prefill_dispatches)
     same_w, _ = compare_streams(rs_w, rs_p)
-    line.update({"expected_launches": expect, "fp32_tok_s": serve["tok_s"],
+    line.update({"expected_launches": expect, "expected_by_route": expect_route,
+                 "fp32_tok_s": serve["tok_s"],
                  "int8_kv_tok_s": quant_lines["int8"]["tok_s"],
                  "streams_identical_to_int8_kv": same_w, "card": card})
     emit(line)
-    if line["paged_attention_launches"] != expect:
-        raise SystemExit(f"serve_w8: launches {line['paged_attention_launches']} != {expect}")
+    if line["paged_attention_launches"] != expect or line["launches_by_route"] != expect_route:
+        raise SystemExit(f"serve_w8: launches {line['paged_attention_launches']} != {expect}, "
+                         f"or by route {line['launches_by_route']} != {expect_route}")
     del e_w
     torch.cuda.empty_cache()
 
@@ -933,20 +987,25 @@ def main() -> int:
     # --- 6. kernels -----------------------------------------------------------
     src = "flexflow_tpu_torch/ops/cuda/csrc/"
     tpu = "flexflow_tpu/ops/pallas/"
+
+    def timed(t):
+        return {k: t[k] for k in ("ms", "was_ms", "plain_ms", "bound_ms", "bound_by",
+                                  "library_ms") if k in t}
+
     kernels = [{
         "name": "paged_attention",
         "route": "cuda",
         "source": src + "paged_attention.cu",
         "replaces": tpu + "paged_attention.py:122",
         "launches": launches_serve,
-        "max_abs_err": worst,
-        "ms": t_dec["ms"],
-        "plain_ms": t_dec["plain_ms"],
-        "bound_ms": t_dec["bound_ms"],
-        "bound_by": t_dec["bound_by"],
-        "library_ms": t_dec["library_ms"],
-        "prefill": {k: t_pre[k] for k in
-                    ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+        "launches_by_route": by_route_serve,
+        "max_abs_err": worst["float32"],
+        **timed(t_dec),
+        "prefill": timed(t_pre),
+        # a float32 q over bfloat16 pools (the engine's kv_dtype="bf16"),
+        # which no serve arm runs
+        "bfloat16": {"max_abs_err": worst["bfloat16"], **timed(t_bf["decode"]),
+                     "prefill": timed(t_bf["prefill"])},
     }]
     for kind, name, replaces in (
             ("fwd", "flash_fwd", tpu + "flash_attention.py:177"),
@@ -964,10 +1023,6 @@ def main() -> int:
         if kind == "fwd":
             entry["also_replaces"] = tpu + "flash_attention.py:98"
         kernels.append(entry)
-    def timed(t):
-        return {k: t[k] for k in ("ms", "was_ms", "plain_ms", "bound_ms", "bound_by",
-                                  "library_ms") if k in t}
-
     kernels.append({
         "name": "paged_attention_quant",
         "route": "cuda",
@@ -992,9 +1047,10 @@ def main() -> int:
 def device_profile(fn, top=10, host_top=0) -> dict:
     """Run ``fn`` under ``torch.profiler``: wall time, the union of device
     intervals (busy time), the idle share, and the ``top`` kernels with the
-    most device time (all of them for None); with ``host_top``, that many
-    host operations with the most self time on the host as well.
-    ``result`` is what ``fn`` returned."""
+    most device time (all of them for None); where the paged-attention
+    kernel ran, its device time by route (``paged_us_by_route``); with
+    ``host_top``, that many host operations with the most self time on the
+    host as well.  ``result`` is what ``fn`` returned."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1016,12 +1072,23 @@ def device_profile(fn, top=10, host_top=0) -> dict:
             busy += t_b - max(t_a, end)
             end = t_b
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:top]
-    host = {}
+    # the paged-attention kernel's device time by route: the single pass,
+    # and the row-group path (split and combine kernels, two a call)
+    paged = {}
+    for name, (tot, cnt) in by_name.items():
+        route = ("single" if "paged_attention_kernel" in name else
+                 "split" if "paged_split" in name or "paged_combine" in name else None)
+        if route:
+            us, n = paged.get(route, (0.0, 0))
+            paged[route] = (us + tot, n + cnt)
+    extra = {}
+    if paged:
+        extra["paged_us_by_route"] = {r: {"us": us, "kernels": n} for r, (us, n) in paged.items()}
     if host_top:
         ops = sorted(prof.key_averages(), key=lambda a: -a.self_cpu_time_total)[:host_top]
-        host["top_host_ops_us"] = [{"name": a.key[:80], "self_us": a.self_cpu_time_total,
-                                    "count": a.count} for a in ops]
-    return {**host,"wall_us": wall_us, "device_busy_us": busy if spans else None,
+        extra["top_host_ops_us"] = [{"name": a.key[:80], "self_us": a.self_cpu_time_total,
+                                     "count": a.count} for a in ops]
+    return {**extra, "wall_us": wall_us, "device_busy_us": busy if spans else None,
             "device_idle_share": 1.0 - busy / wall_us if spans else None,
             "device_events": len(spans),
             "top_kernels_us": [{"name": n[:80], "total_us": t, "count": c}

@@ -16,17 +16,32 @@
 //
 // What bounds it on the card.  The least work is the K/V of the visible
 // positions (1 or 2-4 bytes an element) and 4*D flops per visible (row, key)
-// pair: a decode step (G = 1) is bound by bytes, a prefill chunk (G = 32) by
-// operations on CUDA cores (at the serve shapes 6.3 MB against 0.39 GFLOP,
-// about 0.002 / 0.006 ms).  Neither path comes near that: both are bound by
-// latency, the number of blocks in flight and, in the single-pass path, a
-// dependent chain of shared-memory reads per element.
+// pair: a decode step (G = 1) is bound by bytes, and so is a prefill chunk
+// (G = 32) with its products on the tensor cores (at the serve shapes a
+// float32 pool's chunk moves 25 MB, 0.0080 ms at 3.35 TB/s, against 0.39
+// GFLOP, 0.0024 ms at 3xTF32's rate; an int8 pool's 6.3 MB, 0.0019 ms).
+// Neither path comes near that: both are bound by latency, the number of
+// blocks in flight and, in the single-pass path, a dependent chain of
+// shared-memory reads per element.
 //
-// Two paths, chosen by the wrapper (ops/cuda/paged_attention.py):
+// Two paths, chosen by the wrapper (ops/cuda/paged_attention.py split_plan):
 //
-// * Single pass (every pool format at G < SPLIT_MIN_ROWS = 2, i.e. decode;
-//   float32 and bfloat16 pools at any G; int8/fp8 pools at D != 64 or a BS
-//   that does not divide 64): grid (B, H, ceil(G / ROWS)), one block of four
+// * Row groups, split over pages (every pool format at G >= SPLIT_MIN_ROWS
+//   = 2, D 64, BS dividing 64: the prefill chunk at G 32 and the speculative
+//   verify at G 4): the lane's rows score 64-key tiles on the tensor cores,
+//   and the lane's pages are split over several blocks whose partials a
+//   combine pass merges (flash-decoding), so that the grid fills the card;
+//   see the section "Row-group path at G >= SPLIT_MIN_ROWS" below.  int8,
+//   e4m3 and bfloat16 pages run bfloat16 products; float32 pages run 3xTF32
+//   products.  Measured at the serve shapes on an H100 80GB HBM3 at 700 W
+//   (tools/torch_kernel_designs.py, device time, q float32), G 32 / G 4
+//   against the single pass: float32 pools 0.033 / 0.039 ms against 0.34 /
+//   0.079, bfloat16 pools 0.032 / 0.028 against 0.37 / 0.085, int8 pools
+//   0.028 / 0.027 against 0.48 / 0.12; kSplitTiles = 2 tiles per split
+//   (over int8 pools 1 and 4 were slower).
+// * Single pass (every pool format at G = 1, i.e. decode, and at any G
+//   where the row-group path does not take the shape: D != 64 or a BS that
+//   does not divide 64): grid (B, H, ceil(G / ROWS)), one block of four
 //   warps per (lane, head, row group), looping over the lane's pages 0..last
 //   in order.  Each warp carries up to kRowsPerWarp query rows with a
 //   float32 online softmax (running max m, running sum l, accumulator acc in
@@ -39,21 +54,12 @@
 //   once each, straight from the pool through the block table; no dense
 //   (B, H, SV, D) gather exists, and block 0 (the trash block idle lanes map)
 //   contributes only through positions the mask admits.
-// * Row groups, split over pages (int8 and fp8 pools at G >= SPLIT_MIN_ROWS,
-//   D 64, BS dividing 64: the prefill chunk at G 32 and the speculative verify
-//   at G 4): the lane's rows score 64-key tiles on the tensor cores, and the
-//   lane's pages are split over several blocks whose partials a combine pass
-//   merges (flash-decoding), so that the grid fills the card; see the section
-//   "Kernel 5q at G >= SPLIT_MIN_ROWS" below.  Measured at the serve shapes on
-//   an H100 80GB HBM3 at 700 W (tools/torch_kernel_designs.py, device time):
-//   0.031 ms at G 32 against the single pass's 0.48, and 0.031 at G 4
-//   against 0.12, at kSplitTiles = 2 tiles per split (1 and 4 were slower).
-//   G = 1 stays on the single pass, which the split path was not built for.
 //
-// Either way a wrapper call is one launch in the wrapper's count (LAUNCHES,
-// LAUNCHES_BY_POOL): the row-group path's split and combine kernels are one
-// call, so a serve run's count stays 12 x (steps + prefill dispatches).
-//
+// Either way a wrapper call is one launch in the wrapper's counts (LAUNCHES,
+// LAUNCHES_BY_POOL, and LAUNCHES_BY_ROUTE under "single" or "split"): the
+// row-group path's split and combine kernels are one call, so a serve run's
+// count stays 12 x (steps + prefill dispatches).
+
 // Quantized pools (TKV int8_t or __nv_fp8_e4m3): a page's two scale rows
 // ride the page's copies, fetched through the same block-table entry with
 // 4-byte cp.async copies (any BS).  Each stored element widens exactly (to
@@ -78,6 +84,7 @@
 #include <cmath>
 #include <cstddef>
 #include <cstdint>
+#include <type_traits>
 
 namespace {
 
@@ -317,9 +324,10 @@ cudaError_t launch(const void* q, const void* pool_k, const void* pool_v, const 
 }
 
 // ---------------------------------------------------------------------------
-// Kernel 5q at G >= SPLIT_MIN_ROWS (the wrapper's threshold): key tiles on
-// the tensor cores, split over pages.  (The header note above describes the G = 1 path; this section is
-// the quantized pools' row-group path.)
+// Row-group path at G >= SPLIT_MIN_ROWS (the wrapper's threshold): key
+// tiles on the tensor cores, split over pages.  (The header note above
+// describes the single pass; this section is the row-group path, for every
+// pool format.)
 //
 // Grid (B, H, row groups x splits); a block owns up to 64 rows of one lane
 // and head (one warp per 16 rows) and the key tiles [split x kSplitTiles,
@@ -327,23 +335,48 @@ cudaError_t launch(const void* q, const void* pool_k, const void* pool_v, const 
 // pages gathered through the block table.  The entry point computes the
 // number of splits from kTileKeys and kSplitTiles, so the wrapper holds no
 // copy of either that could disagree with the kernel; it only passes the
-// size of the workspace it allocated, which the entry point checks.  A split that starts past the block's last visible page
-// returns at once; the combine kernel knows it from the positions.
+// size of the workspace it allocated, which the entry point checks.  A
+// split that starts past the block's last visible page returns at once; the
+// combine kernel knows it from the positions.  Keys of a tile past the
+// block's last visible page are never read: they enter shared memory as 0.
 //
-// Per tile: the raw 1-byte K and V pages and their scale rows go into a ring
-// of two stages with cp.async (the next tile loads while this one is
-// computed); the block widens the stage to bfloat16 in shared memory, K as
-// [key][D] and V transposed as [d][key], exactly (an int8 or e4m3 value is a
-// bfloat16 value).  Each warp then scores its 16 rows against the 64 keys
-// with mma.sync m16n8k16 (bfloat16 in, float32 accumulate): a float32 q is
-// split into three bfloat16 parts whose sum is q exactly, so the three
-// products accumulate the float32 dot product up to float32 rounding; a
-// bfloat16 q is one part.  The score is (q . Kq) * sk * scale, masked to
-// -FLT_MAX past the row (on tiles that cross a row's position only), with a
-// base-2 online softmax over the split's tiles.  The weight of Vq[k] is
-// w = p * sv[k] in float32, split into three bfloat16 parts the same way, and
-// P.V is three more products.  The split's (m, l, acc) go to a float32
-// workspace; the combine kernel merges the live splits of every row:
+// int8, e4m3 and bfloat16 pools (paged_split_kernel).  Per tile: the raw K
+// and V pages (1 or 2 bytes an element) and, for the 1-byte pools, their
+// scale rows go into a ring of two stages with cp.async (the next tile
+// loads while this one is computed); the block then brings the stage to
+// bfloat16 in shared memory, K as [key][D] and V transposed as [d][key]: a
+// 1-byte element widens exactly (an int8 or e4m3 value is a bfloat16
+// value), a bfloat16 element is copied.  Each warp then scores its 16 rows
+// against the 64 keys with mma.sync m16n8k16 (bfloat16 in, float32
+// accumulate): a float32 q is split into three bfloat16 parts whose sum is
+// q exactly, so the three products accumulate the float32 dot product up
+// to float32 rounding; a bfloat16 q is one part.  The score is (q . K) * sk
+// * scale (no sk over a bfloat16 pool), masked to -FLT_MAX past the row (on
+// tiles that cross a row's position only), with a base-2 online softmax
+// over the split's tiles.  The weight of V[k] is w = p * sv[k] (p over a
+// bfloat16 pool) in float32, split into three bfloat16 parts the same way,
+// and P.V is three more products.
+//
+// float32 pools (paged_split_tf32_kernel, float32 q only).  A float32 page
+// is no bfloat16 value, so every product is 3xTF32, as in the float32
+// flash backward (csrc/flash_attention.cu; the helpers below are copies of
+// its tf_swz, split_tf32, mma_tf32, mma_3xtf32, tf_mma_nt and tf_mma_nn,
+// since a library is built from, and hashed over, its one source): each
+// operand x is split as its fragment loads into hi = x rounded to TF32 and
+// lo = x - hi, and a . b is lo_a . hi_b + hi_a . lo_b + hi_a . hi_b on
+// mma.sync.m16n8k8.tf32 with float32 accumulation.  The block's q rows and
+// each tile's K and V stay float32 in shared memory, rows of D floats whose
+// 16-byte pieces are permuted by tf_swz(row), which serves both the
+// 16-byte row loads of S = q . K^T and the 4-byte column loads of P . V
+// without bank conflicts; the tiles come through the same two-stage
+// cp.async ring.  The softmax is the other kernel's.  The tensor core
+// rounds each mma's sum mostly toward zero (tools/torch_tf32_probe.py), but
+// a split accumulates at most kSplitTiles x 64 keys before the combine's
+// FMAs take over: at the serve shapes the results land within 1.8e-6 of the
+// plain version (chip_smoke.py; its float32 gate is 2e-5).
+//
+// Either kernel writes the split's (m, l, acc) to a float32 workspace; the
+// combine kernel merges the live splits of every row in float32 FMAs:
 // M = max m_s, L = sum l_s 2^(m_s - M), out = sum acc_s 2^(m_s - M) / L.
 constexpr int kTileKeys = 64;   // keys per tile
 constexpr int kSplitTiles = 2;  // tiles per split (1 and 4 measured slower)
@@ -422,10 +455,12 @@ __device__ __forceinline__ float quad_sum(float v) {
   return v + __shfl_xor_sync(0xffffffffu, v, 2);
 }
 
-// shared memory of one split block: the raw ring, then the widened tile
-template <int D>
+// shared memory of one paged_split_kernel block: the raw ring (with the
+// scale rows of a 1-byte pool), then the bfloat16 tile
+template <typename TKV, int D>
 constexpr size_t split_smem_bytes() {
-  return 2 * (2 * (size_t)kTileKeys * D + 2 * sizeof(float) * kTileKeys) +
+  constexpr size_t scales = is_quantized<TKV>() ? 2 * sizeof(float) * kTileKeys : 0;
+  return 2 * (2 * sizeof(TKV) * (size_t)kTileKeys * D + scales) +
          sizeof(bf16) * ((size_t)kTileKeys * (D + 8) + (size_t)D * (kTileKeys + 8));
 }
 
@@ -445,15 +480,17 @@ paged_split_kernel(const TQ* __restrict__ q, const TKV* __restrict__ pool_k,
                    const float* __restrict__ scale_v, const int* __restrict__ positions,
                    const int* __restrict__ block_tables, float* __restrict__ part, int G, int H,
                    int BS, int MB, int splits, float scale_log2) {
+  constexpr bool kQuant = is_quantized<TKV>();  // else a bfloat16 pool
   constexpr int QP = sizeof(TQ) == 4 ? 3 : 1;  // bfloat16 parts of q
   constexpr int KD = D / 16, ND = D / 8, NK = kTileKeys / 8;
   constexpr int LDK = D + 8, LDV = kTileKeys + 8;  // padded rows: no bank conflicts
-  constexpr int kRawBytes = kTileKeys * D;         // one 1-byte K (or V) tile
+  constexpr int kRawBytes = kTileKeys * D * (int)sizeof(TKV);  // one raw K (or V) tile
   extern __shared__ __align__(16) unsigned char smem_raw[];
   unsigned char* raw = smem_raw;  // [2 stages][K tile | V tile]
-  float* raw_sc = reinterpret_cast<float*>(raw + 2 * 2 * kRawBytes);  // [2][sk 64 | sv 64]
-  bf16* kb = reinterpret_cast<bf16*>(raw_sc + 2 * 2 * kTileKeys);     // [64][LDK]
-  bf16* vt = kb + kTileKeys * LDK;                                     // [D][LDV]
+  // [2][sk 64 | sv 64], 1-byte pools only
+  float* raw_sc = reinterpret_cast<float*>(raw + 2 * 2 * kRawBytes);
+  bf16* kb = reinterpret_cast<bf16*>(raw_sc + (kQuant ? 2 * 2 * kTileKeys : 0));  // [64][LDK]
+  bf16* vt = kb + kTileKeys * LDK;                                                 // [D][LDV]
   __shared__ float sks[kTileKeys], svs[kTileKeys];
 
   const int b = blockIdx.x, h = blockIdx.y;
@@ -469,7 +506,7 @@ paged_split_kernel(const TQ* __restrict__ q, const TKV* __restrict__ pool_k,
   const int* table = block_tables + (size_t)b * MB;
   const int nthr = blockDim.x;
   const int warp = threadIdx.x / 32, g = (threadIdx.x % 32) / 4, t = threadIdx.x % 4;
-  const int page_bytes = BS * D;
+  const int page_bytes = BS * D * (int)sizeof(TKV);
   const int key_end = (last + 1) * BS;  // keys at or past this are in no visible page
 
   auto issue = [&](int tile, int st) {
@@ -488,12 +525,14 @@ paged_split_kernel(const TQ* __restrict__ q, const TKV* __restrict__ pool_k,
                      reinterpret_cast<const unsigned char*>(pool_v) + base);
         }
       }
-      for (int j = threadIdx.x; j < kTileKeys; j += nthr) {
-        const int page = tile * tp + j / BS;
-        if (page <= last) {
-          const size_t row = (size_t)table[page] * BS + j % BS;
-          cp_async4(rs + j, scale_k + row);
-          cp_async4(rs + kTileKeys + j, scale_v + row);
+      if constexpr (kQuant) {
+        for (int j = threadIdx.x; j < kTileKeys; j += nthr) {
+          const int page = tile * tp + j / BS;
+          if (page <= last) {
+            const size_t row = (size_t)table[page] * BS + j % BS;
+            cp_async4(rs + j, scale_k + row);
+            cp_async4(rs + kTileKeys + j, scale_v + row);
+          }
         }
       }
     }
@@ -532,32 +571,48 @@ paged_split_kernel(const TQ* __restrict__ q, const TKV* __restrict__ pool_k,
     issue(tile + 1, st ^ 1);
     asm volatile("cp.async.wait_group 1;\n" ::);
     __syncthreads();
-    // widen the stage into kb / vt (keys of pages past `last` read as 0)
+    // widen (1-byte pools) or copy (bfloat16 pools) the stage into kb / vt;
+    // keys of pages past `last` read as 0
     const unsigned char* rk = raw + st * 2 * kRawBytes;
     const int live_keys = min(kTileKeys, key_end - tile * kTileKeys);
     for (int c = threadIdx.x; c < kTileKeys * (D / 8); c += nthr) {
       const int key = c % kTileKeys, d0 = 8 * (c / kTileKeys);
-      uint2 k8 = make_uint2(0u, 0u), v8 = make_uint2(0u, 0u);
-      if (key < live_keys) {
-        k8 = *reinterpret_cast<const uint2*>(rk + key * D + d0);
-        v8 = *reinterpret_cast<const uint2*>(rk + kRawBytes + key * D + d0);
-      }
-      uint32_t kw[4];
+      if constexpr (!kQuant) {
+        uint4 k8 = make_uint4(0u, 0u, 0u, 0u), v8 = make_uint4(0u, 0u, 0u, 0u);
+        if (key < live_keys) {
+          const bf16* sk = reinterpret_cast<const bf16*>(rk) + key * D + d0;
+          k8 = *reinterpret_cast<const uint4*>(sk);
+          v8 = *reinterpret_cast<const uint4*>(sk + kTileKeys * D);
+        }
+        *reinterpret_cast<uint4*>(kb + key * LDK + d0) = k8;
+        const bf16* v = reinterpret_cast<const bf16*>(&v8);
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const uint32_t kx = i < 2 ? k8.x : k8.y, vx = i < 2 ? v8.x : v8.y;
-        const int sh = 16 * (i & 1);
-        kw[i] = pack_bf16(__float2bfloat16_rn(byte_to_f32<TKV>(kx >> sh)),
-                          __float2bfloat16_rn(byte_to_f32<TKV>(kx >> (sh + 8))));
-        vt[(d0 + 2 * i) * LDV + key] = __float2bfloat16_rn(byte_to_f32<TKV>(vx >> sh));
-        vt[(d0 + 2 * i + 1) * LDV + key] = __float2bfloat16_rn(byte_to_f32<TKV>(vx >> (sh + 8)));
+        for (int i = 0; i < 8; ++i) vt[(d0 + i) * LDV + key] = v[i];
+      } else {
+        uint2 k8 = make_uint2(0u, 0u), v8 = make_uint2(0u, 0u);
+        if (key < live_keys) {
+          k8 = *reinterpret_cast<const uint2*>(rk + key * D + d0);
+          v8 = *reinterpret_cast<const uint2*>(rk + kRawBytes + key * D + d0);
+        }
+        uint32_t kw[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const uint32_t kx = i < 2 ? k8.x : k8.y, vx = i < 2 ? v8.x : v8.y;
+          const int sh = 16 * (i & 1);
+          kw[i] = pack_bf16(__float2bfloat16_rn(byte_to_f32<TKV>(kx >> sh)),
+                            __float2bfloat16_rn(byte_to_f32<TKV>(kx >> (sh + 8))));
+          vt[(d0 + 2 * i) * LDV + key] = __float2bfloat16_rn(byte_to_f32<TKV>(vx >> sh));
+          vt[(d0 + 2 * i + 1) * LDV + key] = __float2bfloat16_rn(byte_to_f32<TKV>(vx >> (sh + 8)));
+        }
+        *reinterpret_cast<uint4*>(kb + key * LDK + d0) = make_uint4(kw[0], kw[1], kw[2], kw[3]);
       }
-      *reinterpret_cast<uint4*>(kb + key * LDK + d0) = make_uint4(kw[0], kw[1], kw[2], kw[3]);
     }
-    for (int j = threadIdx.x; j < kTileKeys; j += nthr) {
-      const bool live = j < live_keys;
-      sks[j] = live ? raw_sc[st * 2 * kTileKeys + j] : 0.f;
-      svs[j] = live ? raw_sc[st * 2 * kTileKeys + kTileKeys + j] : 0.f;
+    if constexpr (kQuant) {
+      for (int j = threadIdx.x; j < kTileKeys; j += nthr) {
+        const bool live = j < live_keys;
+        sks[j] = live ? raw_sc[st * 2 * kTileKeys + j] : 0.f;
+        svs[j] = live ? raw_sc[st * 2 * kTileKeys + kTileKeys + j] : 0.f;
+      }
     }
     __syncthreads();
 
@@ -585,7 +640,8 @@ paged_split_kernel(const TQ* __restrict__ q, const TKV* __restrict__ pool_k,
         for (int e = 0; e < 4; ++e) {
           const int kj = 8 * j + 2 * t + (e & 1);
           const bool vis = full || (key0 + kj <= rpos[e / 2] && key0 + kj < key_end);
-          s[j][e] = vis ? s[j][e] * (sks[kj] * scale_log2) : -FLT_MAX;
+          const float sc = kQuant ? sks[kj] * scale_log2 : scale_log2;
+          s[j][e] = vis ? s[j][e] * sc : -FLT_MAX;
           mx[e / 2] = fmaxf(mx[e / 2], s[j][e]);
         }
       float m_new[2], alpha[2], psum[2] = {0.f, 0.f};
@@ -602,7 +658,7 @@ paged_split_kernel(const TQ* __restrict__ q, const TKV* __restrict__ pool_k,
           const int kj = 8 * j + 2 * t + (e & 1);
           const float p = s[j][e] == -FLT_MAX ? 0.f : exp2f(s[j][e] - m_new[r]);
           psum[r] += p;
-          s[j][e] = p * svs[kj];  // V's scale folded into its weight
+          s[j][e] = kQuant ? p * svs[kj] : p;  // V's scale folded into its weight
         }
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
@@ -660,6 +716,257 @@ paged_split_kernel(const TQ* __restrict__ q, const TKV* __restrict__ pool_k,
   }
 }
 
+// --- 3xTF32 helpers, copied from csrc/flash_attention.cu ---------------------
+
+// the permutation of row r's 16-byte pieces (within each 128 bytes)
+__device__ __forceinline__ int tf_swz(int r) { return (r & 6) ^ ((r & 1) << 2); }
+
+// x = hi + lo: hi x rounded to its TF32 head (to nearest, ties away from 0;
+// the low 13 bits cleared), lo the exact rest (at most half a TF32 step)
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
+  hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+  lo = __float_as_uint(x - __uint_as_float(hi));
+}
+
+// d (one n8 block of a 16 x 8 accumulator) += a . b on m16n8k8.tf32
+__device__ __forceinline__ void mma_tf32(float& d0, float& d1, float& d2, float& d3,
+                                         const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d0), "+f"(d1), "+f"(d2), "+f"(d3)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// n8 block n of `d` += a . b in 3xTF32 (a and b split into hi and lo):
+// lo . hi, hi . lo, hi . hi
+template <int N>
+__device__ __forceinline__ void mma_3xtf32(float (&d)[N], int n, const uint32_t (&ah)[4],
+                                           const uint32_t (&al)[4], uint32_t bh0, uint32_t bh1,
+                                           uint32_t bl0, uint32_t bl1) {
+  mma_tf32(d[4 * n], d[4 * n + 1], d[4 * n + 2], d[4 * n + 3], al, bh0, bh1);
+  mma_tf32(d[4 * n], d[4 * n + 1], d[4 * n + 2], d[4 * n + 3], ah, bl0, bl1);
+  mma_tf32(d[4 * n], d[4 * n + 1], d[4 * n + 2], d[4 * n + 3], ah, bh0, bh1);
+}
+
+// c (16 x 8 NB, accumulator layout, flat: n8 block n at c[4n ..]) = A . B^T
+// over D: A the warp's 16 rows from row `arow` of tile `a`, B the NB * 8 rows
+// of tile `b`
+template <int D, int NB>
+__device__ __forceinline__ void tf_mma_nt(float (&c)[NB * 4], const float* a, int arow,
+                                          const float* b) {
+  const int g = (threadIdx.x % 32) / 4, t = threadIdx.x % 4;
+#pragma unroll
+  for (int i = 0; i < NB * 4; ++i) c[i] = 0.f;
+  // rows g (mod 8) of both tiles: piece 4u + t sits at 4 * ((4u + t) ^ swz)
+  const int swz = tf_swz(g);
+  const int pc[2] = {4 * (t ^ swz), 4 * ((4 | t) ^ swz)};  // u even, u odd
+  const float* a0 = a + (arow + g) * D;
+  const float* b0 = b + g * D;
+#pragma unroll
+  for (int u = 0; u < D / 16; ++u) {
+    const int col = 32 * (u / 2) + pc[u % 2];
+    const float4 x0 = *reinterpret_cast<const float4*>(a0 + col);
+    const float4 x1 = *reinterpret_cast<const float4*>(a0 + 8 * D + col);
+    uint32_t ah[2][4], al[2][4];
+    split_tf32(x0.x, ah[0][0], al[0][0]);
+    split_tf32(x1.x, ah[0][1], al[0][1]);
+    split_tf32(x0.y, ah[0][2], al[0][2]);
+    split_tf32(x1.y, ah[0][3], al[0][3]);
+    split_tf32(x0.z, ah[1][0], al[1][0]);
+    split_tf32(x1.z, ah[1][1], al[1][1]);
+    split_tf32(x0.w, ah[1][2], al[1][2]);
+    split_tf32(x1.w, ah[1][3], al[1][3]);
+#pragma unroll
+    for (int n = 0; n < NB; ++n) {
+      const float4 y = *reinterpret_cast<const float4*>(b0 + 8 * n * D + col);
+      uint32_t bh[4], bl[4];
+      split_tf32(y.x, bh[0], bl[0]);
+      split_tf32(y.y, bh[1], bl[1]);
+      split_tf32(y.z, bh[2], bl[2]);
+      split_tf32(y.w, bh[3], bl[3]);
+      mma_3xtf32(c, n, ah[0], al[0], bh[0], bh[1], bl[0], bl[1]);
+      mma_3xtf32(c, n, ah[1], al[1], bh[2], bh[3], bl[2], bl[3]);
+    }
+  }
+}
+
+// acc (16 x D, accumulator layout) += X . T: X (16 x 8 NB) in accumulator
+// layout, T the tile's first 8 NB rows (8 NB x D).  k-step j holds rows
+// 8j .. 8j + 7, column t of A (row t of B) row 8j + 2t and column t + 4 row
+// 8j + 2t + 1, which is where the accumulator has them.
+template <int D, int NB>
+__device__ __forceinline__ void tf_mma_nn(float (&acc)[D / 2], const float (&x)[NB * 4],
+                                          const float* tile) {
+  const int g = (threadIdx.x % 32) / 4, t = threadIdx.x % 4;
+  // element (8j + 2t, 8n + g) sits at piece (2n + g / 4) ^ 2t of its row, and
+  // (8j + 2t + 1, 8n + g) at (2n + g / 4) ^ 2t ^ 4: in floats,
+  // 32 (n / 4) + 8 ((n % 4) ^ t) (even row) or ^ (t ^ 2) (odd row), + g's own
+  int pc[4];
+#pragma unroll
+  for (int m = 0; m < 4; ++m) pc[m] = 8 * (m ^ t) + 4 * (g / 4) + (g % 4);
+  const float* r0 = tile + 2 * t * D;
+#pragma unroll
+  for (int j = 0; j < NB; ++j) {
+    uint32_t ah[4], al[4];
+    split_tf32(x[4 * j + 0], ah[0], al[0]);  // (g, key 2t)
+    split_tf32(x[4 * j + 2], ah[1], al[1]);  // (g + 8, key 2t)
+    split_tf32(x[4 * j + 1], ah[2], al[2]);  // (g, key 2t + 1)
+    split_tf32(x[4 * j + 3], ah[3], al[3]);  // (g + 8, key 2t + 1)
+    const float* re = r0 + 8 * j * D;
+    const float* ro = re + D;
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n) {
+      const int cn = 32 * (n / 4);
+      uint32_t bh0, bl0, bh1, bl1;
+      split_tf32(re[cn + pc[n % 4]], bh0, bl0);
+      split_tf32(ro[cn + pc[(n % 4) ^ 2]], bh1, bl1);
+      mma_3xtf32(acc, n, ah, al, bh0, bh1, bl0, bl1);
+    }
+  }
+}
+
+// shared memory of one paged_split_tf32_kernel block of `warps` warps: the
+// ring of two stages of a K and a V tile, then the block's q rows
+template <int D>
+constexpr size_t split_tf32_smem_bytes(int warps) {
+  return sizeof(float) * (2 * 2 * (size_t)kTileKeys * D + 16 * (size_t)warps * D);
+}
+
+// The row-group path over float32 pools (see the section note above); the
+// signature is paged_split_kernel's, the scale rows unused.
+template <int D>
+__global__ void __launch_bounds__(128)
+paged_split_tf32_kernel(const float* __restrict__ q, const float* __restrict__ pool_k,
+                        const float* __restrict__ pool_v, const float* __restrict__,
+                        const float* __restrict__, const int* __restrict__ positions,
+                        const int* __restrict__ block_tables, float* __restrict__ part, int G,
+                        int H, int BS, int MB, int splits, float scale_log2) {
+  constexpr int NK = kTileKeys / 8, kChunks = D / 4;  // 16-byte pieces a row
+  constexpr int kTileF = kTileKeys * D;                // floats of one K (or V) tile
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* ring = reinterpret_cast<float*>(smem_raw);  // [2 stages][K tile | V tile]
+  float* qs = ring + 2 * 2 * kTileF;                 // [16 x warps][D]
+
+  const int b = blockIdx.x, h = blockIdx.y;
+  const int rg = blockIdx.z / splits, split = blockIdx.z % splits;
+  const int g0 = rg * kGroupRows;
+  const int g_end = min(G, g0 + kGroupRows);
+  const int pos0 = positions[b];
+  const int last = group_last_page(pos0, g_end, BS, MB);
+  const int tp = kTileKeys / BS;
+  const int tile0 = split * kSplitTiles;
+  const int tile_end = min(tile0 + kSplitTiles, last / tp + 1);
+  if (tile0 >= tile_end) return;  // nothing here is visible to the block's rows
+  const int* table = block_tables + (size_t)b * MB;
+  const int nthr = blockDim.x;
+  const int warp = threadIdx.x / 32, g = (threadIdx.x % 32) / 4, t = threadIdx.x % 4;
+  const int key_end = (last + 1) * BS;  // keys at or past this are in no visible page
+  const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
+
+  // the block's q rows (0 past g_end); they ride the first tile's group
+  for (int c = threadIdx.x; c < 16 * (nthr / 32) * kChunks; c += nthr) {
+    const int r = c / kChunks, piece = c % kChunks;
+    float* dst = qs + r * D + ((piece ^ tf_swz(r)) << 2);
+    if (g0 + r < g_end)
+      cp_async16(dst, q + (((size_t)b * G + g0 + r) * H + h) * D + 4 * piece);
+    else
+      *reinterpret_cast<float4*>(dst) = zero;
+  }
+  // tile `tile` into stage st, key r of the tile at row r; keys of pages
+  // past `last` are zeros, never read from the pool
+  auto issue = [&](int tile, int st) {
+    if (tile < tile_end) {
+      float* ks = ring + st * 2 * kTileF;
+      float* vs = ks + kTileF;
+      for (int c = threadIdx.x; c < kTileKeys * kChunks; c += nthr) {
+        const int r = c / kChunks, piece = c % kChunks;
+        const int dst = r * D + ((piece ^ tf_swz(r)) << 2);
+        const int page = tile * tp + r / BS;
+        if (page <= last) {
+          const size_t src = (((size_t)table[page] * H + h) * BS + r % BS) * D + 4 * piece;
+          cp_async16(ks + dst, pool_k + src);
+          cp_async16(vs + dst, pool_v + src);
+        } else {
+          *reinterpret_cast<float4*>(ks + dst) = zero;
+          *reinterpret_cast<float4*>(vs + dst) = zero;
+        }
+      }
+    }
+    cp_async_commit();
+  };
+  issue(tile0, 0);
+
+  const int r0 = g0 + warp * 16 + g, r1 = r0 + 8;
+  const bool warp_live = g0 + warp * 16 < g_end;
+  float m[2] = {-FLT_MAX, -FLT_MAX}, l[2] = {0.f, 0.f}, o[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+
+  for (int tile = tile0; tile < tile_end; ++tile) {
+    const int st = (tile - tile0) & 1;
+    issue(tile + 1, st ^ 1);
+    asm volatile("cp.async.wait_group 1;\n" ::);
+    __syncthreads();
+    if (warp_live) {
+      const float* ks = ring + st * 2 * kTileF;
+      float s[NK * 4];
+      tf_mma_nt<D, NK>(s, qs, 16 * warp, ks);  // S = q . K^T
+      const int key0 = tile * kTileKeys;
+      // every key of the tile visible to every row of the warp: no mask
+      const bool full = key0 + kTileKeys <= min(key_end, pos0 + g0 + warp * 16 + 1);
+      const int rpos[2] = {pos0 + r0, pos0 + r1};
+      float mx[2] = {-FLT_MAX, -FLT_MAX};
+#pragma unroll
+      for (int j = 0; j < NK; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int kj = 8 * j + 2 * t + (e & 1);
+          const bool vis = full || (key0 + kj <= rpos[e / 2] && key0 + kj < key_end);
+          s[4 * j + e] = vis ? s[4 * j + e] * scale_log2 : -FLT_MAX;
+          mx[e / 2] = fmaxf(mx[e / 2], s[4 * j + e]);
+        }
+      float m_new[2], alpha[2], psum[2] = {0.f, 0.f};
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        m_new[r] = fmaxf(m[r], quad_max(mx[r]));
+        alpha[r] = exp2f(m[r] - m_new[r]);
+      }
+#pragma unroll
+      for (int i = 0; i < NK * 4; ++i) {
+        const int r = (i % 4) / 2;
+        s[i] = s[i] == -FLT_MAX ? 0.f : exp2f(s[i] - m_new[r]);
+        psum[r] += s[i];
+      }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        l[r] = l[r] * alpha[r] + quad_sum(psum[r]);
+        m[r] = m_new[r];
+      }
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i) o[i] *= alpha[(i % 4) / 2];
+      tf_mma_nn<D, NK>(o, s, ks + kTileF);  // o += P . V
+    }
+    __syncthreads();  // the stage is consumed before it is refilled
+  }
+
+  // the split's partials, laid out as paged_split_kernel's
+  if (!warp_live) return;
+  const size_t lane_split = ((size_t)b * H + h) * splits + split;
+  float* acc = part + lane_split * G * D;
+  float* ml = part + (size_t)gridDim.x * H * splits * G * D + lane_split * G * 2;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = r ? r1 : r0;
+    if (row >= g_end) continue;
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n)
+      *reinterpret_cast<float2*>(acc + (size_t)row * D + 8 * n + 2 * t) =
+          make_float2(o[4 * n + 2 * r], o[4 * n + 2 * r + 1]);
+    if (t == 0) *reinterpret_cast<float2*>(ml + 2 * row) = make_float2(m[r], l[r]);
+  }
+}
+
 // one thread per output element: merge the live splits of its row
 template <typename TQ>
 __global__ void __launch_bounds__(128)
@@ -695,25 +1002,30 @@ cudaError_t launch_split(const void* q, const void* pool_k, const void* pool_v,
                          const void* scale_k, const void* scale_v, const void* positions,
                          const void* block_tables, void* out, void* part, int B, int G, int H,
                          int BS, int MB, int splits, float scale, cudaStream_t stream) {
-  auto kernel = paged_split_kernel<TQ, TKV, D>;
-  const size_t smem = split_smem_bytes<D>();
-  if (smem > 48 * 1024) {
-    cudaError_t err =
-        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) {
-      cudaGetLastError();
-      return err;
-    }
-  }
   const int groups = (G + kGroupRows - 1) / kGroupRows;
-  const int rows = G < kGroupRows ? G : kGroupRows;
-  kernel<<<dim3(B, H, groups * splits), 32 * ((rows + 15) / 16), smem, stream>>>(
-      static_cast<const TQ*>(q), static_cast<const TKV*>(pool_k),
-      static_cast<const TKV*>(pool_v), static_cast<const float*>(scale_k),
-      static_cast<const float*>(scale_v), static_cast<const int*>(positions),
-      static_cast<const int*>(block_tables), static_cast<float*>(part), G, H, BS, MB, splits,
-      scale * kLog2e);
-  cudaError_t err = cudaGetLastError();
+  const int warps = ((G < kGroupRows ? G : kGroupRows) + 15) / 16;
+  auto run = [&](auto kernel, size_t smem) {
+    if (smem > 48 * 1024) {
+      cudaError_t err =
+          cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      if (err != cudaSuccess) {
+        cudaGetLastError();
+        return err;
+      }
+    }
+    kernel<<<dim3(B, H, groups * splits), 32 * warps, smem, stream>>>(
+        static_cast<const TQ*>(q), static_cast<const TKV*>(pool_k),
+        static_cast<const TKV*>(pool_v), static_cast<const float*>(scale_k),
+        static_cast<const float*>(scale_v), static_cast<const int*>(positions),
+        static_cast<const int*>(block_tables), static_cast<float*>(part), G, H, BS, MB, splits,
+        scale * kLog2e);
+    return cudaGetLastError();
+  };
+  cudaError_t err;
+  if constexpr (std::is_same<TKV, float>::value)
+    err = run(paged_split_tf32_kernel<D>, split_tf32_smem_bytes<D>(warps));
+  else
+    err = run(paged_split_kernel<TQ, TKV, D>, split_smem_bytes<TKV, D>());
   if (err != cudaSuccess) return err;
   paged_combine_kernel<TQ><<<dim3(B, H, (G * D + 127) / 128), 128, 0, stream>>>(
       static_cast<const float*>(part), static_cast<const int*>(positions),
@@ -763,12 +1075,12 @@ extern "C" const char* ff_cuda_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// Kernel 5q's row-group path (see its section above): int8 (kv_format 2) or
-// float8 e4m3 (3) pools, D 64 (at D 128 the float32-q instantiation needs
-// more than 255 registers), BS dividing 64, q float32 or bfloat16.
-// `part` is a float32 workspace of `part_floats` values; the launch needs
-// B x H x splits x G x (D + 2) of them, splits = ceil(MB / (kSplitTiles x
-// kTileKeys / BS)), and refuses a smaller one.
+// The row-group path (see its section above): every pool format, as
+// ff_paged_attention takes them, at D 64 (at D 128 the float32-q
+// instantiation of paged_split_kernel needs more than 255 registers) and a
+// BS dividing 64.  `part` is a float32 workspace of `part_floats` values;
+// the launch needs B x H x splits x G x (D + 2) of them, splits =
+// ceil(MB / (kSplitTiles x kTileKeys / BS)), and refuses a smaller one.
 extern "C" int ff_paged_attention_split(const void* q, const void* pool_k, const void* pool_v,
                                         const void* scale_k, const void* scale_v,
                                         const void* positions, const void* block_tables,
@@ -776,8 +1088,10 @@ extern "C" int ff_paged_attention_split(const void* q, const void* pool_k, const
                                         int G, int H, int D, int BS, int MB, float scale,
                                         int q_bf16, int kv_format, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if ((kv_format != 2 && kv_format != 3) || D != 64 || BS < 1 || kTileKeys % BS || MB < 1 ||
-      scale_k == nullptr || scale_v == nullptr)
+  const bool quant = kv_format == 2 || kv_format == 3;
+  if (kv_format < 0 || kv_format > 3 || (q_bf16 && kv_format == 0) ||
+      quant != (scale_k != nullptr && scale_v != nullptr) || D != 64 || BS < 1 ||
+      kTileKeys % BS || MB < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   const int pages = kSplitTiles * (kTileKeys / BS);
   const int splits = (MB + pages - 1) / pages;
@@ -787,10 +1101,20 @@ extern "C" int ff_paged_attention_split(const void* q, const void* pool_k, const
   launch_split<TQ, TKV, 64>(q, pool_k, pool_v, scale_k, scale_v, positions, block_tables, out, \
                             part, B, G, H, BS, MB, splits, scale, s)
   cudaError_t err;
-  if (q_bf16)
-    err = kv_format == 2 ? FF_SPLIT(__nv_bfloat16, int8_t) : FF_SPLIT(__nv_bfloat16, __nv_fp8_e4m3);
-  else
-    err = kv_format == 2 ? FF_SPLIT(float, int8_t) : FF_SPLIT(float, __nv_fp8_e4m3);
+  if (q_bf16) {
+    switch (kv_format) {
+      case 1: err = FF_SPLIT(__nv_bfloat16, __nv_bfloat16); break;
+      case 2: err = FF_SPLIT(__nv_bfloat16, int8_t); break;
+      default: err = FF_SPLIT(__nv_bfloat16, __nv_fp8_e4m3); break;
+    }
+  } else {
+    switch (kv_format) {
+      case 0: err = FF_SPLIT(float, float); break;
+      case 1: err = FF_SPLIT(float, __nv_bfloat16); break;
+      case 2: err = FF_SPLIT(float, int8_t); break;
+      default: err = FF_SPLIT(float, __nv_fp8_e4m3); break;
+    }
+  }
 #undef FF_SPLIT
   return static_cast<int>(err);
 }

@@ -12,12 +12,16 @@ allocator's trash block.  Row ``g`` attends positions
 * :func:`paged_attention` is the wrapper.  On CUDA tensors it launches
   the hand-written kernel ``csrc/paged_attention.cu`` (which replaces
   the TPU kernel ``_kernel`` of the JAX module, full-precision and
-  quantized) and adds one to :data:`LAUNCHES` and to
-  :data:`LAUNCHES_BY_POOL` under the pool's dtype, once per call (the
-  quantized row-group path's split and combine kernels are one call); a
-  build or launch failure raises.  On CPU tensors
-  it takes the plain version.  It never falls back from CUDA to the
-  plain version.
+  quantized) on one of two routes (:func:`split_plan`): the row-group
+  path, split over pages, for G >= :data:`SPLIT_MIN_ROWS` rows at D 64
+  and a BS dividing 64, over every pool format; the single pass for
+  every other call (decode, G = 1, among them).  It adds one to
+  :data:`LAUNCHES`, to :data:`LAUNCHES_BY_POOL` under the pool's dtype
+  and to :data:`LAUNCHES_BY_ROUTE` under the route, once per call (the
+  row-group path's split and combine kernels are one call); a build or
+  launch failure raises.  On CPU tensors it takes the plain version and
+  counts nothing.  It never falls back from CUDA to the plain version
+  or from one route to the other.
 * :func:`paged_attention_plain` is the plain PyTorch version: gather
   ``pool[block_tables]`` to (B, H, SV, D) (times the gathered scale rows
   when quantized), mask ``k_pos <= pos0 + g``,
@@ -25,9 +29,9 @@ allocator's trash block.  Row ``g`` attends positions
   engine's ``attend`` computes (``attn="gather"``) and what the CPU
   tests run.
 * :func:`paged_attention_split_plain` is the plain version of the
-  quantized kernel's row-group path (:data:`SPLIT_MIN_ROWS` rows or
-  more): the softmax taken over segments of pages, each segment's
-  (max, sum, weighted sum) kept, then merged.  Only the tests use it.
+  kernel's row-group path (:data:`SPLIT_MIN_ROWS` rows or more): the
+  softmax taken over segments of pages, each segment's (max, sum,
+  weighted sum) kept, then merged.  Only the tests use it.
 """
 
 from __future__ import annotations
@@ -40,6 +44,7 @@ import torch
 __all__ = [
     "LAUNCHES",
     "LAUNCHES_BY_POOL",
+    "LAUNCHES_BY_ROUTE",
     "MAX_HEAD_DIM",
     "paged_attention",
     "paged_attention_plain",
@@ -56,11 +61,15 @@ LAUNCHES = 0
 # the same launches by pool dtype name ("float32", "bfloat16", "int8",
 # "float8_e4m3fn")
 LAUNCHES_BY_POOL: dict = {}
+# the same launches by route: "single" (the single pass) or "split" (the
+# row-group path, split over pages, and its combine)
+LAUNCHES_BY_ROUTE = {"single": 0, "split": 0}
 
 MAX_HEAD_DIM = 256  # the kernel keeps D / 32 accumulators per lane, at most 8
-# int8 and float8 pools with at least this many rows per lane take the
-# kernel's row-group path: 64-key tiles on the tensor cores, the lane's
-# pages split over blocks of two tiles each, a combine pass after
+# calls with at least this many rows per lane take the kernel's row-group
+# path (at D 64 and a BS dividing 64, over every pool format): 64-key tiles
+# on the tensor cores, the lane's pages split over blocks of two tiles
+# each, a combine pass after
 SPLIT_MIN_ROWS = 2
 # the path's shapes, as csrc/paged_attention.cu fixes them (kTileKeys,
 # kSplitTiles, its one head dim); the kernel computes its splits itself and
@@ -146,11 +155,12 @@ def paged_attention_plain(q, pool_k, pool_v, positions, block_tables, scale=None
 
 
 def split_plan(G, D, BS, MB, pool_dtype):
-    """``(splits, pages per split)`` of the quantized kernel's row-group
-    path for ``G`` rows per lane over tables of ``MB`` pages of ``BS``,
-    or None where the single-pass path runs (fewer rows, a full-precision
-    pool, a head dim or page size the path does not take)."""
-    if (pool_dtype not in _QUANT or G < SPLIT_MIN_ROWS or D != _SPLIT_HEAD_DIM
+    """``(splits, pages per split)`` of the kernel's row-group path for
+    ``G`` rows per lane over tables of ``MB`` pages of ``BS`` in a pool of
+    ``pool_dtype`` (float32, bfloat16, int8 or float8_e4m3fn), or None
+    where the single pass runs (fewer rows, a head dim or page size the
+    path does not take)."""
+    if (pool_dtype not in _POOL_FORMAT or G < SPLIT_MIN_ROWS or D != _SPLIT_HEAD_DIM
             or _TILE_KEYS % BS):
         return None
     pages = _SPLIT_TILES * (_TILE_KEYS // BS)
@@ -317,6 +327,7 @@ def paged_attention(q, pool_k, pool_v, positions, block_tables, scale=None,
     LAUNCHES += 1
     name = str(pool_k.dtype).replace("torch.", "")
     LAUNCHES_BY_POOL[name] = LAUNCHES_BY_POOL.get(name, 0) + 1
+    LAUNCHES_BY_ROUTE["single" if plan is None else "split"] += 1
     return out
 
 

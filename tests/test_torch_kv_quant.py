@@ -271,7 +271,9 @@ def test_split_plain_matches_unsplit_and_pallas_kernel(monkeypatch, kv_dtype, G,
 
 
 def test_split_plan_takes_quantized_row_groups_only():
-    """Which calls the kernel's row-group path takes, and its segments."""
+    """Which calls the kernel's row-group path takes, and its segments:
+    every pool format (quantized, float32 and bfloat16 alike) at G >= 2,
+    D 64 and a BS dividing 64; any other call takes the single pass."""
     i8, f8 = torch.int8, torch.float8_e4m3fn
     rows, tiles, keys = tpa.SPLIT_MIN_ROWS, 2, 64  # csrc: kSplitTiles, kTileKeys
     pages = tiles * keys // 16
@@ -281,8 +283,10 @@ def test_split_plan_takes_quantized_row_groups_only():
     assert tpa.split_plan(32, 64, 4, 100, i8) == (-(-100 // (tiles * keys // 4)),
                                                   tiles * keys // 4)
     assert tpa.split_plan(rows - 1, 64, 16, 64, i8) is None
-    assert tpa.split_plan(32, 64, 16, 64, torch.float32) is None
-    assert tpa.split_plan(32, 64, 16, 64, torch.bfloat16) is None
+    assert tpa.split_plan(32, 64, 16, 64, torch.float32) == (-(-64 // pages), pages)
+    assert tpa.split_plan(32, 64, 16, 64, torch.bfloat16) == (-(-64 // pages), pages)
+    assert tpa.split_plan(32, 128, 16, 64, torch.float32) is None
+    assert tpa.split_plan(32, 64, 48, 64, torch.bfloat16) is None
     assert tpa.split_plan(32, 16, 16, 64, i8) is None
     assert tpa.split_plan(32, 64, 48, 64, i8) is None
 

@@ -38,8 +38,9 @@ def _one_thread():
     torch.set_num_threads(old)
 
 
-def _case(seed, B, G, H, D, BS, MB):
-    """Inputs as the serve programs give them, with poisoned pages."""
+def _case(seed, B, G, H, D, BS, MB, pos=None):
+    """Inputs as the serve programs give them, with poisoned pages.
+    ``pos`` (B,) overrides the lanes' drawn positions."""
     rng = np.random.default_rng(seed)
     N = B * MB + 1  # + trash block 0
     q = rng.standard_normal((B, G, H, D)).astype(np.float32)
@@ -49,11 +50,11 @@ def _case(seed, B, G, H, D, BS, MB):
     # starts that straddle a page: row 0 sits mid-page and the G rows
     # run across at least one page boundary where the window allows
     hi = MB * BS - G
-    pos = np.array(
+    drawn = np.array(
         [min(hi, BS * int(rng.integers(0, MB)) + BS // 2 + b) for b in range(B)],
         np.int32,
     )
-    pos = np.maximum(pos, 0)
+    pos = np.maximum(drawn, 0) if pos is None else np.asarray(pos, np.int32)
     pk[0] = pv[0] = 1e4
     for b in range(B):
         last = (int(pos[b]) + G - 1) // BS
@@ -98,12 +99,66 @@ def test_plain_bf16_pool_matches_float32_on_rounded_values():
     assert got_bf.dtype == torch.bfloat16
 
 
+# lane 0 at position 0 (its later segments hold nothing it sees), lane 1
+# with rows that straddle a segment boundary, lane 2 near the table's end;
+# 7 pages in segments of 2 or 3 (neither divides 7)
+@pytest.mark.parametrize("G, pages", [(5, 2), (8, 3)])
+@pytest.mark.parametrize("pool", ["float32", "bfloat16"])
+def test_split_plain_matches_unsplit_and_pallas_kernel_over_float_pools(
+        monkeypatch, pool, G, pages):
+    """The row-group path's arithmetic (softmax over segments of pages,
+    then merged), which the kernel runs over float32 and bfloat16 pools at
+    G >= 2, against the unsplit plain version and the Pallas kernel."""
+    monkeypatch.setattr(jpa, "INTERPRET", True)
+    B, H, D, BS, MB = 3, 2, 16, 4, 7
+    q, pk, pv, pos, bt = _case(G + pages, B, G, H, D, BS, MB,
+                               pos=[0, pages * BS - 2, MB * BS - G])
+    dtype = getattr(torch, pool)
+    pk, pv = torch.from_numpy(pk).to(dtype), torch.from_numpy(pv).to(dtype)
+    jdt = jnp.bfloat16 if pool == "bfloat16" else jnp.float32
+    want = np.asarray(jpa.paged_prefill_attention(
+        jnp.asarray(q), jnp.asarray(pk.float().numpy()).astype(jdt),
+        jnp.asarray(pv.float().numpy()).astype(jdt), jnp.asarray(pos), jnp.asarray(bt),
+    ))
+    args = (torch.from_numpy(q), pk, pv, torch.from_numpy(pos), torch.from_numpy(bt))
+    got = tpa.paged_attention_split_plain(*args, pages_per_split=pages)
+    assert got.dtype == torch.float32 and got.shape == (B, G, H, D)
+    assert np.all(np.isfinite(got.numpy()))
+    np.testing.assert_allclose(got.numpy(), tpa.paged_attention_plain(*args).numpy(),
+                               atol=1e-6, rtol=0)
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-5, rtol=0)
+    # one segment of all the pages is the unsplit softmax
+    np.testing.assert_allclose(tpa.paged_attention_split_plain(*args, pages_per_split=MB),
+                               tpa.paged_attention_plain(*args).numpy(), atol=1e-6, rtol=0)
+    if pool == "bfloat16":  # a bfloat16 q over a bfloat16 pool
+        bf = (args[0].bfloat16(),) + args[1:]
+        got_bf = tpa.paged_attention_split_plain(*bf, pages_per_split=pages)
+        assert got_bf.dtype == torch.bfloat16
+        np.testing.assert_allclose(got_bf.float().numpy(),
+                                   tpa.paged_attention_plain(*bf).float().numpy(),
+                                   atol=1e-2, rtol=2.0 ** -7)
+
+
 def test_cpu_tensors_take_plain_version_and_never_count():
     q, pk, pv, pos, bt = map(torch.from_numpy, _case(3, 2, 1, 2, 8, 4, 3))
     before = tpa.LAUNCHES
     out = tpa.paged_attention(q, pk, pv, pos, bt)
     assert tpa.LAUNCHES == before
     torch.testing.assert_close(out, tpa.paged_attention_plain(q, pk, pv, pos, bt))
+
+
+def test_cpu_calls_leave_the_route_counts_alone():
+    """On CPU tensors a call on either route's shapes (G 1: the single
+    pass; G 8 at D 64, BS 16: the row-group path) takes the plain version
+    and counts nothing, by pool or by route."""
+    before = (tpa.LAUNCHES, dict(tpa.LAUNCHES_BY_POOL), dict(tpa.LAUNCHES_BY_ROUTE))
+    assert set(tpa.LAUNCHES_BY_ROUTE) == {"single", "split"}
+    for G in (1, 8):
+        q, pk, pv, pos, bt = map(torch.from_numpy, _case(G, 2, G, 2, 64, 16, 3))
+        assert (tpa.split_plan(G, 64, 16, 3, pk.dtype) is None) == (G == 1)
+        out = tpa.paged_attention(q, pk, pv, pos, bt)
+        torch.testing.assert_close(out, tpa.paged_attention_plain(q, pk, pv, pos, bt))
+    assert (tpa.LAUNCHES, tpa.LAUNCHES_BY_POOL, tpa.LAUNCHES_BY_ROUTE) == before
 
 
 def test_non_cpu_non_cuda_tensors_raise():

@@ -32,14 +32,14 @@ Prints, one JSON line each:
   forward is, beside SDPA's autograd backward (dQ, dK and dV together;
   ``sdpa_bwd_kernels`` names the kernels it launched, which shows the
   backend PyTorch picked);
-* ``paged_quant_check`` / ``paged_quant_time``: the quantized paged
-  kernel's row-group path (int8 and float8 pools, q float32 and
-  bfloat16, ragged G, a lane at position 0, rows across a split, G 80 in
-  two row groups of a block each) against
+* ``paged_check`` / ``paged_time``: the paged kernel's row-group path
+  over float32, bfloat16, int8 and float8 pools (q float32 and bfloat16,
+  a float32 q only over float32 pools; ragged G, a lane at position 0,
+  rows across a split, G 80 in two row groups of a block each) against
   the plain version, then the single-pass path and the row-group path
   at the serve shapes (8 lanes, 12 heads, D 64,
   BS 16, 64 pages: prefill G 32 at 480, verify G 4 at 512, decode G 1 at
-  512), beside SDPA on pre-gathered dequantized K/V.
+  512; q float32), beside SDPA on pre-gathered (dequantized) K/V.
 
 The card's name and power limit come last.  Tolerances are
 ``chip_smoke.py``'s.
@@ -299,12 +299,24 @@ def flash_bwd_times(dtype):
         emit(line)
 
 
-def quant_case(rng, G, kv_dtype, pos, q_dtype):
-    """chip_smoke.py's quantized case: pages past each lane's view
-    poisoned (ints at the maximum, scales 1e4), the trash block with zero
-    scales."""
+def pool_case(rng, G, pool, pos, q_dtype):
+    """chip_smoke.py's cases: over a float32 or bfloat16 pool, pages past
+    each lane's view and the trash block hold 1e4; over an int8 or fp8
+    pool, pages past each lane's view hold ints at the maximum with scales
+    1e4, the trash block the same ints with zero scales."""
     N = B * MB + 1
     q = torch.from_numpy(rng.standard_normal((B, G, H, D)).astype(np.float32))
+    p_d = torch.from_numpy(pos.astype(np.int32)).to(DEV)
+    if pool in ("float32", "bfloat16"):
+        kv = torch.from_numpy(rng.standard_normal((2, N, H, BS, D)).astype(np.float32))
+        bt = (rng.permutation(N - 1) + 1)[: B * MB].reshape(B, MB).astype(np.int32)
+        past = [int(bt[b, i]) for b in range(B)
+                for i in range((int(pos[b]) + G - 1) // BS + 1, MB)]
+        kv[:, [0] + past] = 1e4
+        pk, pv = kv.to(DEV, getattr(torch, pool))
+        return (q.to(DEV, q_dtype), pk.contiguous(), pv.contiguous(), p_d,
+                torch.from_numpy(bt).to(DEV), None, None, None)
+    kv_dtype = pool
     pools = []
     for _ in range(2):
         x = torch.from_numpy(rng.standard_normal((N, BS, H, D)).astype(np.float32)).to(DEV)
@@ -315,19 +327,23 @@ def quant_case(rng, G, kv_dtype, pos, q_dtype):
     top = torch.full((H, BS, D), kv_qmax(kv_dtype), device=DEV).to(pools[0][0].dtype)
     past = [int(bt[b, i]) for b in range(B) for i in range((int(pos[b]) + G - 1) // BS + 1, MB)]
     idx = torch.tensor([0] + past, dtype=torch.long, device=DEV)
-    for pool, sc in pools:
-        pool_bits(pool)[idx] = pool_bits(top)
+    for qpool, sc in pools:
+        pool_bits(qpool)[idx] = pool_bits(top)
         sc[idx] = 1e4
         sc[0] = 0.0
     (pk, sk), (pv, sv) = pools
-    return (q.to(DEV, q_dtype), pk, pv, torch.from_numpy(pos.astype(np.int32)).to(DEV),
-            torch.from_numpy(bt).to(DEV), None, sk, sv)
+    return (q.to(DEV, q_dtype), pk, pv, p_d, torch.from_numpy(bt).to(DEV), None, sk, sv)
+
+
+POOLS = ("float32", "bfloat16", "int8", "fp8")
 
 
 def paged_checks():
     rng = np.random.default_rng(1)
-    for kv_dtype in ("int8", "fp8"):
+    for kv_dtype in POOLS:
         for q_dtype in (torch.float32, torch.bfloat16):
+            if kv_dtype == "float32" and q_dtype == torch.bfloat16:
+                continue  # the kernel takes no bfloat16 q over a float32 pool
             for G, label in ((4, "verify"), (20, "ragged"), (32, "prefill"), (20, "position_0"),
                              (20, "straddle"), (80, "two_row_groups")):
                 pos = np.minimum(BS * rng.integers(0, MB, size=B) + BS // 2 + np.arange(B),
@@ -336,11 +352,11 @@ def paged_checks():
                     pos[0] = 0
                 if label == "straddle":  # rows 54 .. 73 cross the 64-key tile
                     pos[:] = 54 + 64 * np.arange(B) % (MB * BS - 64 - G)
-                args = quant_case(rng, G, kv_dtype, pos, q_dtype)
+                args = pool_case(rng, G, kv_dtype, pos, q_dtype)
                 want = pa.paged_attention_plain(*args)
                 name = str(q_dtype).replace("torch.", "")
                 atol, rtol = PAGED_TOL[name]
-                line = {"phase": "paged_quant_check", "case": label, "kv_dtype": kv_dtype,
+                line = {"phase": "paged_check", "case": label, "kv_dtype": kv_dtype,
                         "q_dtype": name, "G": G, "plan": pa.split_plan(G, D, BS, MB,
                                                                        args[1].dtype)}
                 try:
@@ -358,14 +374,15 @@ def paged_checks():
 def paged_times():
     scale = 1.0 / math.sqrt(D)
     for G, ctx in ((32, 480), (4, 512), (1, 512)):
-        for kv_dtype in ("int8", "fp8"):
+        for kv_dtype in POOLS:
             pos = np.full(B, ctx, np.int64)
-            args = quant_case(np.random.default_rng(G), G, kv_dtype, pos, torch.float32)
+            args = pool_case(np.random.default_rng(G), G, kv_dtype, pos, torch.float32)
             q, pk, pv, p_d, bt, _, sk, sv = args
 
             def dense(pool, sc):
                 pages = pool_bits(pool)[bt.long()].view(pool.dtype).float()
-                pages = pages * sc[bt.long()][:, :, None, :, None]
+                if sc is not None:
+                    pages = pages * sc[bt.long()][:, :, None, :, None]
                 return pages.permute(0, 2, 1, 3, 4).reshape(B, H, MB * BS, D)
 
             keys, vals = dense(pk, sk), dense(pv, sv)
@@ -373,7 +390,7 @@ def paged_times():
             rows = p_d.long()[:, None] + torch.arange(G, device=DEV)
             mask = (k_pos[None, None, :] <= rows[:, :, None])[:, None]
             qh = q.permute(0, 2, 1, 3).contiguous()
-            line = {"phase": "paged_quant_time", "kv_dtype": kv_dtype, "G": G, "context": ctx}
+            line = {"phase": "paged_time", "kv_dtype": kv_dtype, "G": G, "context": ctx}
             keep = pa.SPLIT_MIN_ROWS
             try:
                 pa.SPLIT_MIN_ROWS = 10 ** 9

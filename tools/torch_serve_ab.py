@@ -21,6 +21,11 @@ change, parent, one process each.  Prints, one JSON line each:
   weights from seed 0) on ``chip_smoke.py``'s 16 requests, float32 pools
   (``plain``) and int8 pools with speculative decoding (``spec``, k 3, a
   6-layer draft): tokens per second and wall seconds;
+* ``profile``: the ``plain`` arm (float32 pools) traced on
+  ``chip_smoke.py``'s profile traffic (8 requests): wall and device-busy
+  time, the idle share, the paged-attention kernel's device time by route
+  (``paged_us_by_route``: the single pass; the row-group path's split and
+  combine kernels) and the kernels with the most device time;
 * ``profile_spec``: the ``spec`` arm traced on ``chip_smoke.py``'s profile
   traffic (8 requests): wall and device-busy time, the idle share, the
   device time of the paged-attention kernels (``paged_us``) and of the
@@ -153,6 +158,16 @@ def main() -> int:
 
     prof_spec = TrafficSpec(n_requests=8, seed=smoke.SEED + 1, prompt_len=(128, 512),
                             max_new=(32, 64), vocab=smoke.VOCAB)
+    # a fresh engine: a second run of the same prompts on one engine would
+    # find them in its prefix cache and skip most of their prefill
+    e = ServeEngine(model, **engine_kw)
+    prof = smoke.device_profile(lambda: e.run(synthetic_requests(prof_spec)))
+    r = prof.pop("result")
+    emit({"phase": "profile", "tree": label, "arm": "plain", **prof,
+          "windows": r.windows, "decode_steps": r.decode_steps,
+          "prefill_dispatches": r.prefill_dispatches})
+    del e
+    torch.cuda.empty_cache()
     e = ServeEngine(model, **engine_kw, **arms["spec"])
     prof = smoke.device_profile(lambda: e.run(synthetic_requests(prof_spec)), top=None,
                                 host_top=15)

@@ -10,15 +10,18 @@ Phases, each printing one JSON line; any failure exits non-zero:
    once) and report the seconds each took.
 2. ``paged_attention``: the CUDA kernel against its plain PyTorch
    version on the card, float32 and bfloat16 (and a float32 query over
-   a bfloat16 pool), G=1 (decode: the single pass), G=4 (the verify
-   width) and G=32 (prefill chunk; both on the row-group path, split
-   over pages), BS 16, D 64, H 12, scrambled block tables, pages
-   outside each lane's view poisoned with 1e4, starts that straddle a
-   page; then the row-group path's edges: a ragged G of 20
+   a bfloat16 pool), G=1 (decode: the decode path, split over pages),
+   G=4 (the verify width) and G=32 (prefill chunk; both on the row-group
+   path, split over pages), BS 16, D 64, H 12, scrambled block tables,
+   pages outside each lane's view poisoned with 1e4, starts that
+   straddle a page; then the row-group path's edges: a ragged G of 20
    (``ragged``), lanes at position 0 whose later splits hold nothing
    they see (``position_0``), and rows that straddle a split boundary
-   (``straddle``).  Each case must take the route ``split_plan`` gives
-   it, as ``LAUNCHES_BY_ROUTE`` shows.  Tolerances, by output dtype:
+   (``straddle``); then the decode path's edges (``decode_edges``: a
+   lane at position 0, one whose last page is partly visible, one on
+   the first key of a split, one at the table's last position), at BS
+   16 and 8 and at D 128.  Each case must take the route ``route``
+   gives it, as ``LAUNCHES_BY_ROUTE`` shows.  Tolerances, by output dtype:
    float32 2e-5 absolute (the two sum in different orders: online
    softmax page by page, or tile by tile and split by split, against
    one softmax over the gathered row; the row-group path's products are
@@ -30,15 +33,21 @@ Phases, each printing one JSON line; any failure exits non-zero:
    on pre-gathered K/V are timed at the serve phase's shapes, over
    float32 pools and over bfloat16 pools (float32 q); at G 32 the timing
    also times the single pass that the row-group path replaced
-   (``was_ms``).
+   (``was_ms``), at G 1 the single pass that the decode path replaced
+   (``was_ms``) and the row-group path forced to G 1
+   (``row_group_g1_ms``).
    ``paged_attention_quant``: the same kernel over int8 and float8 e4m3
    pools with their per-position scale rows, q float32 and bfloat16,
    G = 1, 4 and 32 and the three edge cases, with the same tolerances;
    pages past each lane's view hold ints at the format's maximum with
    scale rows 1e4, the trash block the same ints with zero scales.
-   ``paged_attention_single_pass``: the single pass at G 32, which the
-   engine takes at a D other than 64 or a BS that does not divide 64,
-   forced (``SPLIT_MIN_ROWS`` above G) over all four pool formats.
+   ``paged_attention_single_pass``: the single pass at G 32 and at G 1,
+   which the engine takes at a D the other paths do not take or a BS that
+   does not divide 64, forced (``SPLIT_MIN_ROWS`` above G,
+   ``DECODE_PATH`` off) over all four pool formats;
+   ``paged_attention_row_group_g1``: the row-group path forced to G 1
+   (``DECODE_PATH`` off, ``SPLIT_MIN_ROWS`` 1), which the timing times
+   beside the decode path.
    ``paged_attention_quant_timing`` times the quantized kernel at the
    serve shapes beside its bound (1-byte K/V plus two float32 scales per
    visible position), its plain version and
@@ -50,7 +59,7 @@ Phases, each printing one JSON line; any failure exits non-zero:
    requests with prompts of 128-512 tokens and 32-64 new tokens.  The
    kernel's launch counts are set to 0 just before the run; after it the
    launches must equal 12 x (decode steps + prefill dispatches), by route
-   12 x decode steps on the single pass and 12 x prefill dispatches on
+   12 x decode steps on the decode path and 12 x prefill dispatches on
    the row-group path.  The same requests
    are served again with ``attn="gather"`` and the greedy streams
    compared; both programs are then run on identical inputs and their
@@ -65,7 +74,7 @@ Phases, each printing one JSON line; any failure exits non-zero:
    its programs' probabilities must agree within ``QUANT_PROB_TOL``.
    ``serve_spec`` adds speculative decoding (k = 3, a 6-layer draft) over
    int8 pools: launches 12 x (prefill dispatches + macros) on the
-   row-group path + 6 x 3 x macros (the drafts) on the single pass, and
+   row-group path + 6 x 3 x macros (the drafts) on the decode path, and
    every stream equal to the plain int8 greedy stream up to
    the first token whose relative top-2 margin in the plain run is under
    1e-4.  ``profile_quant`` traces the profile run with int8 pools.
@@ -84,14 +93,14 @@ Phases, each printing one JSON line; any failure exits non-zero:
    float32 backward's D 128 kernels with the mask and dropout together.
    Tolerances, relative to max |reference|: float32 2e-5 forward, 1e-4
    backward (the kernels sum tile by tile, the plain versions over whole
-   rows; the float32 backward's products are 3xTF32); bfloat16 2e-2 (both
+   rows; the float32 kernels' products are 3xTF32); bfloat16 2e-2 (both
    round the same float32 values to bfloat16, at different places for
    the probabilities).
    ``flash_attention_timing`` times each kernel at the slice's shape
    beside its bound, the plain version and
    ``scaled_dot_product_attention`` (forward, and its autograd backward
-   for dQ + dK + dV); each redesigned kernel (the bfloat16 three, the
-   float32 dQ and dK/dV) also times its first design (``was_ms``).
+   for dQ + dK + dV); each redesigned kernel (all three in both dtypes)
+   also times its first design (``was_ms``).
 5. ``train``: the training slice's main path, BERT-Base (hidden 768,
    12 heads, ff 3072, 12 layers) on (16, 512, 768) inputs with a 64-class
    pooled head, Adam(1e-4), sparse CCE, 5 steps on one seeded batch, in
@@ -107,7 +116,8 @@ Phases, each printing one JSON line; any failure exits non-zero:
    (``paged_attention_quant``: the int8 ``serve_quant`` run, fp8 beside
    it; ``paged_attention``: by route as well), error against the plain
    version, times and bound, and ``was_ms`` beside a redesigned kernel's
-   time; ``paged_attention`` carries its bfloat16-pool times under
+   time (the paged kernel's decode also ``row_group_g1_ms``);
+   ``paged_attention`` carries its bfloat16-pool times under
    ``bfloat16``.  Every time is device
    time: the card spins while the host queues the timed call.
 
@@ -219,39 +229,41 @@ def main() -> int:
         raise SystemExit(f"build: expected both kernel sources, got {sorted(libs)}")
 
     # --- 2. paged_attention: kernel against plain, then timing ---------------
-    def case(rng, G, dtype, pos, q_dtype=None):
-        N = B * MB + 1  # + trash block 0
-        q = torch.from_numpy(rng.standard_normal((B, G, H, D)).astype(np.float32))
-        pk = torch.from_numpy(rng.standard_normal((N, H, BS, D)).astype(np.float32))
-        pv = torch.from_numpy(rng.standard_normal((N, H, BS, D)).astype(np.float32))
-        bt = (rng.permutation(N - 1) + 1)[: B * MB].reshape(B, MB).astype(np.int32)
+    def case(rng, G, dtype, pos, q_dtype=None, bs=BS, d=D):
+        mb = SEQ // bs
+        N = B * mb + 1  # + trash block 0
+        q = torch.from_numpy(rng.standard_normal((B, G, H, d)).astype(np.float32))
+        pk = torch.from_numpy(rng.standard_normal((N, H, bs, d)).astype(np.float32))
+        pv = torch.from_numpy(rng.standard_normal((N, H, bs, d)).astype(np.float32))
+        bt = (rng.permutation(N - 1) + 1)[: B * mb].reshape(B, mb).astype(np.int32)
         pk[0] = pv[0] = 1e4
         for b in range(B):
-            last = (int(pos[b]) + G - 1) // BS
-            for i in range(last + 1, MB):
+            last = (int(pos[b]) + G - 1) // bs
+            for i in range(last + 1, mb):
                 pk[bt[b, i]] = 1e4
                 pv[bt[b, i]] = 1e4
         return (q.to(dev, q_dtype or dtype), pk.to(dev, dtype), pv.to(dev, dtype),
                 torch.from_numpy(pos.astype(np.int32)).to(dev),
                 torch.from_numpy(bt).to(dev))
 
-    def quant_case(rng, G, kv_dtype, pos, q_dtype):
+    def quant_case(rng, G, kv_dtype, pos, q_dtype, bs=BS, d=D):
         """Pools quantized from normal K/V by the pools' own rule; pages past
         each lane's last visible page poisoned (ints at the format's
         maximum, scale rows 1e4), the trash block poisoned with zero
         scales."""
-        N = B * MB + 1
-        q = torch.from_numpy(rng.standard_normal((B, G, H, D)).astype(np.float32))
+        mb = SEQ // bs
+        N = B * mb + 1
+        q = torch.from_numpy(rng.standard_normal((B, G, H, d)).astype(np.float32))
         pools = []
         for _ in range(2):
-            x = torch.from_numpy(rng.standard_normal((N, BS, H, D)).astype(np.float32)).to(dev)
+            x = torch.from_numpy(rng.standard_normal((N, bs, H, d)).astype(np.float32)).to(dev)
             qx, sc = quantize_kv(x, kv_dtype)
             qx = pool_bits(qx).permute(0, 2, 1, 3).contiguous().view(qx.dtype)
             pools.append((qx, sc.contiguous()))
-        bt = (rng.permutation(N - 1) + 1)[: B * MB].reshape(B, MB).astype(np.int32)
-        top = torch.full((H, BS, D), kv_qmax(kv_dtype), device=dev).to(pools[0][0].dtype)
+        bt = (rng.permutation(N - 1) + 1)[: B * mb].reshape(B, mb).astype(np.int32)
+        top = torch.full((H, bs, d), kv_qmax(kv_dtype), device=dev).to(pools[0][0].dtype)
         past = [int(bt[b, i]) for b in range(B)
-                for i in range((int(pos[b]) + G - 1) // BS + 1, MB)]
+                for i in range((int(pos[b]) + G - 1) // bs + 1, mb)]
         idx = torch.tensor([0] + past, dtype=torch.long, device=dev)
         for pool, sc in pools:
             pool_bits(pool)[idx] = pool_bits(top)
@@ -264,12 +276,13 @@ def main() -> int:
     def hold(phase, args, scales=(None, None), **info):
         """One call of the kernel on ``args`` (q, pools, positions, block
         tables) against the plain version under ``TOL``, on the route
-        ``split_plan`` gives it, which ``LAUNCHES_BY_ROUTE`` must show.
-        Emits the case's line; fails unless it holds.  Returns the max abs
+        ``route`` gives it, which ``LAUNCHES_BY_ROUTE`` must show.  Emits
+        the case's line; fails unless it holds.  Returns the max abs
         error."""
         q, pk, pv, p_d, bt = args
-        G = q.shape[1]
-        plan = pa.split_plan(G, D, BS, MB, pk.dtype)
+        G, d, bs, mb = q.shape[1], q.shape[3], pk.shape[2], bt.shape[1]
+        route = pa.route(G, d, bs, mb, pk.dtype)
+        plan = (pa.decode_plan if route == "decode" else pa.split_plan)(G, d, bs, mb, pk.dtype)
         before = dict(pa.LAUNCHES_BY_ROUTE)
         got = pa.paged_attention(q, pk, pv, p_d, bt, None, *scales)
         torch.cuda.synchronize()
@@ -278,13 +291,12 @@ def main() -> int:
         err = (got.float() - want.float()).abs()
         name = str(q.dtype).replace("torch.", "")  # the output's dtype
         atol, rtol = TOL[name]
-        route = "single" if plan is None else "split"
         ok = (routes == [route] and bool(torch.isfinite(got.float()).all())
               and bool((err <= atol + rtol * want.float().abs()).all()))
         max_err = float(err.max())
         emit({"phase": phase, **info, "q_dtype": name,
               "pool_dtype": str(pk.dtype).replace("torch.", ""), "G": G, "B": B, "H": H,
-              "D": D, "BS": BS, "MB": MB, "route": routes, "plan": plan,
+              "D": d, "BS": bs, "MB": mb, "route": routes, "plan": plan,
               "positions": p_d.tolist(), "max_abs_err": max_err,
               "rel_err": max_err / float(want.float().abs().max()),
               "atol": atol, "rtol": rtol, "ok": ok})
@@ -314,6 +326,19 @@ def main() -> int:
             pos = np.minimum(bound * (1 + np.arange(B)) - G // 2, MB * BS - G)
         return pos
 
+    def decode_edge(bs, pool_dtype, d=D):
+        """Positions of the decode path's edges at page size ``bs``: a lane
+        at position 0, one whose last page is partly visible, one on the
+        first key of its second split, one at the table's last position."""
+        mb = SEQ // bs
+        pos = np.minimum(bs * rng.integers(0, mb, size=B) + bs // 2 + np.arange(B), mb * bs - 1)
+        pos[:4] = (0, 3 * bs + 5, pa.decode_plan(1, d, bs, mb, pool_dtype)[1] * bs, mb * bs - 1)
+        return pos
+
+    # the decode path's edges: (label, BS, D)
+    DECODE_EDGES = (("decode_edges", BS, D), ("decode_edges_bs8", 8, D),
+                    ("decode_edges_d128", BS, 128))
+
     rng = np.random.default_rng(SEED)
     f32, bf16 = torch.float32, torch.bfloat16
     # (q dtype, pool dtype): the engine's float32 and bfloat16 pools, and
@@ -332,13 +357,21 @@ def main() -> int:
             if q_dtype == f32:
                 key = str(dtype).replace("torch.", "")
                 worst[key] = max(worst.get(key, 0.0), err)
+        for label, bs, d in DECODE_EDGES:
+            hold("paged_attention", case(rng, 1, dtype, decode_edge(bs, dtype, d), q_dtype, bs, d),
+                 case=label)
 
-    # a page too large for shared memory is refused by the launcher, and
-    # the refusal leaves no error behind for the next launch
+    # a page too large for shared memory is refused by the launcher (two
+    # rows a lane over 1024-position pages take the single pass, whose ring
+    # holds whole pages), and the refusal leaves no error behind for the
+    # next launch
     one = case(np.random.default_rng(SEED), 1, f32, np.zeros(B, np.int64))
     wide = torch.zeros(2, H, 1024, D, device=dev)
+    two_rows = torch.cat([one[0], one[0]], dim=1)
+    if pa.route(2, D, 1024, 1, f32) != "single":
+        raise SystemExit("the refusal case no longer takes the single pass")
     try:
-        pa.paged_attention(one[0], wide, wide, one[3],
+        pa.paged_attention(two_rows, wide, wide, one[3],
                            torch.ones((B, 1), dtype=torch.int32, device=dev))
     except RuntimeError as e:
         refused = str(e)
@@ -400,16 +433,24 @@ def main() -> int:
         rows = p_d.long()[:, None] + torch.arange(G, device=dev)
         mask = (k_pos[None, None, :] <= rows[:, :, None])[:, None]  # (B, 1, G, SV)
         qh = q.permute(0, 2, 1, 3).contiguous()
-        ms = time_ms(lambda: pa.paged_attention(q, pk, pv, p_d, bt, scale, sk, sv))
-        was = {}
-        if pa.split_plan(G, D, BS, MB, pk.dtype) is not None:
-            # the single-pass design this path replaced, on the same inputs
-            keep, pa.SPLIT_MIN_ROWS = pa.SPLIT_MIN_ROWS, G + 1
+        def kernel_ms(decode_path=True, split_min_rows=pa.SPLIT_MIN_ROWS):
+            keep = pa.DECODE_PATH, pa.SPLIT_MIN_ROWS
+            pa.DECODE_PATH, pa.SPLIT_MIN_ROWS = decode_path, split_min_rows
             try:
-                was["was_ms"] = time_ms(
-                    lambda: pa.paged_attention(q, pk, pv, p_d, bt, scale, sk, sv))
+                return time_ms(lambda: pa.paged_attention(q, pk, pv, p_d, bt, scale, sk, sv))
             finally:
-                pa.SPLIT_MIN_ROWS = keep
+                pa.DECODE_PATH, pa.SPLIT_MIN_ROWS = keep
+
+        path = pa.route(G, D, BS, MB, pk.dtype)
+        ms = kernel_ms()
+        was = {}
+        # the single-pass design each split path replaced, on the same
+        # inputs; at G 1 also the row-group path forced to one row
+        if path == "split":
+            was["was_ms"] = kernel_ms(split_min_rows=G + 1)
+        if path == "decode":
+            was["was_ms"] = kernel_ms(decode_path=False)
+            was["row_group_g1_ms"] = kernel_ms(decode_path=False, split_min_rows=1)
         plain_ms = time_ms(lambda: pa.paged_attention_plain(q, pk, pv, p_d, bt, scale, sk, sv))
         library_ms = time_ms(lambda: F.scaled_dot_product_attention(
             qh, keys, vals, attn_mask=mask, scale=scale))
@@ -432,7 +473,7 @@ def main() -> int:
         peak_ops = peak_3xtf32 if pk.dtype == torch.float32 else peak_3xbf16
         t_bytes, t_ops = nbytes / peak_bw * 1e3, flops / peak_ops * 1e3
         return {
-            "G": G, "context": ctx, "ms": ms, **was, "plain_ms": plain_ms,
+            "G": G, "context": ctx, "route": path, "ms": ms, **was, "plain_ms": plain_ms,
             "library_ms": library_ms, "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "bytes": nbytes, "flops": flops,
@@ -464,21 +505,34 @@ def main() -> int:
                            kv_dtype=kv_dtype, **({} if label is None else {"case": label}))
                 if q_dtype == f32:
                     quant_worst[kv_dtype] = max(quant_worst.get(kv_dtype, 0.0), err)
-    # the single pass at G >= 2, which the engine takes at a D other than 64
-    # or a BS that does not divide 64: forced here at G 32 over every pool
-    # format, as timing() forces it for was_ms
-    keep, pa.SPLIT_MIN_ROWS = pa.SPLIT_MIN_ROWS, CHUNK + 1
-    try:
-        for q_dtype, dtype in FLOAT_PAIRS:
-            hold("paged_attention_single_pass", case(rng, CHUNK, dtype, spread(CHUNK), q_dtype))
-        for kv_dtype in ("int8", "fp8"):
-            for q_dtype in (f32, bf16):
-                q, pk, pv, sk, sv, p_d, bt = quant_case(rng, CHUNK, kv_dtype, spread(CHUNK),
-                                                        q_dtype)
-                hold("paged_attention_single_pass", (q, pk, pv, p_d, bt), (sk, sv),
-                     kv_dtype=kv_dtype)
-    finally:
-        pa.SPLIT_MIN_ROWS = keep
+            for label, bs, d in DECODE_EDGES:
+                q, pk, pv, sk, sv, p_d, bt = quant_case(
+                    rng, 1, kv_dtype, decode_edge(bs, torch.int8, d), q_dtype, bs, d)
+                hold("paged_attention_quant", (q, pk, pv, p_d, bt), (sk, sv),
+                     kv_dtype=kv_dtype, case=label)
+
+    def forced(phase, G, decode_path, split_min_rows):
+        """Hold ``G``-row calls over every pool format on the path that
+        ``DECODE_PATH`` and ``SPLIT_MIN_ROWS`` set as given choose."""
+        keep = pa.DECODE_PATH, pa.SPLIT_MIN_ROWS
+        pa.DECODE_PATH, pa.SPLIT_MIN_ROWS = decode_path, split_min_rows
+        try:
+            for q_dtype, dtype in FLOAT_PAIRS:
+                hold(phase, case(rng, G, dtype, spread(G), q_dtype))
+            for kv_dtype in ("int8", "fp8"):
+                for q_dtype in (f32, bf16):
+                    q, pk, pv, sk, sv, p_d, bt = quant_case(rng, G, kv_dtype, spread(G), q_dtype)
+                    hold(phase, (q, pk, pv, p_d, bt), (sk, sv), kv_dtype=kv_dtype)
+        finally:
+            pa.DECODE_PATH, pa.SPLIT_MIN_ROWS = keep
+
+    # the single pass, which the engine takes at a D the other paths do not
+    # take or a BS that does not divide 64: forced here at G 32 and G 1 over
+    # every pool format, as timing() forces it for was_ms; and the row-group
+    # path forced to G 1, which timing() times beside the decode path
+    forced("paged_attention_single_pass", CHUNK, True, CHUNK + 1)
+    forced("paged_attention_single_pass", 1, False, 2)
+    forced("paged_attention_row_group_g1", 1, False, 1)
     t_quant = {kv: {"decode": timing(1, 512, kv), "prefill": timing(CHUNK, 480, kv)}
                for kv in ("int8", "fp8")}
     emit({"phase": "paged_attention_quant_timing", **t_quant,
@@ -513,10 +567,10 @@ def main() -> int:
     expect = layers * (rep.decode_steps + rep.prefill_dispatches)
 
     def routes(decode, prefill):
-        """Launches by route when ``decode`` calls run at G 1 (the single
-        pass) and ``prefill`` at G >= 2 (prefill chunks, verifies: the
-        row-group path), one per layer each."""
-        return {"single": decode, "split": prefill}
+        """Launches by route when ``decode`` calls run at G 1 (decode steps,
+        drafts: the decode path) and ``prefill`` at G >= 2 (prefill chunks,
+        verifies: the row-group path), one per layer each."""
+        return {"single": 0, "split": prefill, "decode": decode}
 
     expect_route = routes(layers * rep.decode_steps, layers * rep.prefill_dispatches)
     tokens_ok = all(
@@ -718,7 +772,7 @@ def main() -> int:
     W = SPEC_K + 1
     macros = r_s.decode_steps // W
     expect = layers * (r_s.prefill_dispatches + macros) + SPEC_DRAFT * SPEC_K * macros
-    # drafts at G 1 take the single pass; verifies (G 4) and prefill chunks
+    # drafts at G 1 take the decode path; verifies (G 4) and prefill chunks
     # the row-group path
     expect_route = routes(SPEC_DRAFT * SPEC_K * macros,
                           layers * (r_s.prefill_dispatches + macros))
@@ -897,10 +951,8 @@ def main() -> int:
             "dkv": {"ms": time_ms(lambda: fa.flash_bwd_dkv(*bwd_args)),
                     "plain_ms": time_ms(lambda: fa.flash_attention_bwd_dkv_plain(*bwd_args))},
         })
-        # the first designs, which the redesigns replaced (the float32
-        # forward has one design)
-        if dtype == bf16:
-            res["fwd"]["was_ms"] = time_ms(lambda: fa.flash_fwd(q, k, v, first_design=True))
+        # the first designs, which the redesigns replaced
+        res["fwd"]["was_ms"] = time_ms(lambda: fa.flash_fwd(q, k, v, first_design=True))
         res["dq"]["was_ms"] = time_ms(lambda: fa.flash_bwd_dq(*bwd_args, first_design=True))
         res["dkv"]["was_ms"] = time_ms(lambda: fa.flash_bwd_dkv(*bwd_args, first_design=True))
         lq, lk, lv = (t.detach().clone().requires_grad_() for t in (q, k, v))
@@ -989,8 +1041,8 @@ def main() -> int:
     tpu = "flexflow_tpu/ops/pallas/"
 
     def timed(t):
-        return {k: t[k] for k in ("ms", "was_ms", "plain_ms", "bound_ms", "bound_by",
-                                  "library_ms") if k in t}
+        return {k: t[k] for k in ("ms", "was_ms", "row_group_g1_ms", "plain_ms", "bound_ms",
+                                  "bound_by", "library_ms") if k in t}
 
     kernels = [{
         "name": "paged_attention",
@@ -1030,10 +1082,13 @@ def main() -> int:
         "replaces": tpu + "paged_attention.py:158",
         "also_replaces": tpu + "paged_attention.py:215",
         "launches": quant_launches["int8"],
+        "launches_by_route": quant_lines["int8"]["launches_by_route"],
         "max_abs_err": quant_worst["int8"],
         **timed(t_quant["int8"]["decode"]),
         "prefill": timed(t_quant["int8"]["prefill"]),
-        "fp8": {"launches": quant_launches["fp8"], "max_abs_err": quant_worst["fp8"],
+        "fp8": {"launches": quant_launches["fp8"],
+                "launches_by_route": quant_lines["fp8"]["launches_by_route"],
+                "max_abs_err": quant_worst["fp8"],
                 **timed(t_quant["fp8"]["decode"]), "prefill": timed(t_quant["fp8"]["prefill"])},
         "spec_launches": spec_launches,
     })
@@ -1073,10 +1128,12 @@ def device_profile(fn, top=10, host_top=0) -> dict:
             end = t_b
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:top]
     # the paged-attention kernel's device time by route: the single pass,
-    # and the row-group path (split and combine kernels, two a call)
+    # the row-group path (split and combine kernels, two a call) and the
+    # decode path (one kernel a call)
     paged = {}
     for name, (tot, cnt) in by_name.items():
         route = ("single" if "paged_attention_kernel" in name else
+                 "decode" if "paged_decode" in name else
                  "split" if "paged_split" in name or "paged_combine" in name else None)
         if route:
             us, n = paged.get(route, (0.0, 0))

@@ -26,19 +26,20 @@
 //
 // Two sets of kernels share that contract:
 //
-// * float32 inputs: the forward runs as float32 FMAs on the CUDA cores.
-//   Each block of 256 threads stages a 64-row Q tile and 64-row K/V tiles in
-//   shared memory, widened with a padded row stride; each thread keeps a
-//   4 x 4 register tile of scores and a 4 x D/16 tile of the output, so one
-//   shared-memory load feeds several FMAs.  The backward's first designs
-//   (flash_bwd_dq_kernel, flash_bwd_dkv_kernel) are built the same way and
-//   stay only so that the redesign can be timed beside them; its default is
-//   its Hopper redesign on the tensor cores ("The float32 backward on the
-//   tensor cores" below).  One TF32 product misses the backward's float32
-//   gate (1e-4 of the plain version) by 8-12x, so each product there is
-//   three (3xTF32: each operand split into a TF32 head and the rest, the
-//   small cross terms summed before the heads'), which meets it, though
-//   not at the FMA kernels' error level (see that section).
+// * float32 inputs: every kernel's default is its Hopper redesign on the
+//   tensor cores ("The float32 backward on the tensor cores" and "The
+//   float32 forward on the tensor cores" below).  One TF32 product misses
+//   the backward's float32 gate (1e-4 of the plain version) by 8-12x, so
+//   each product is three (3xTF32: each operand split into a TF32 head and
+//   the rest, the small cross terms summed before the heads'), which meets
+//   the gates, though not at the FMA kernels' error level (see those
+//   sections).  The first designs (flash_fwd_kernel, flash_bwd_dq_kernel,
+//   flash_bwd_dkv_kernel) run float32 FMAs on the CUDA cores and stay only
+//   so that the redesigns can be timed beside them: each block of 256
+//   threads stages a 64-row tile of its own side and 64-row tiles of the
+//   other in shared memory, widened with a padded row stride; each thread
+//   keeps a 4 x 4 register tile of scores and a 4 x D/16 tile of the
+//   output, so one shared-memory load feeds several FMAs.
 // * bfloat16 inputs: tensor cores (bfloat16 in, float32 accumulate), with
 //   the score and probability tiles kept in registers.  Each kernel's
 //   default is its Hopper redesign on wgmma (the sections "The bfloat16
@@ -51,12 +52,14 @@
 //
 // What bounds them on this card.  float32: operations (the forward at
 // BERT-Base, S 512, D 64, does 4*S*D = 131k flops per row, far above the
-// H100's balance point); the forward runs them on the CUDA cores (67
-// TFLOP/s), the backward's redesign on the tensor cores as 3xTF32 (a third
-// of TF32's 495 TFLOP/s) through a cp.async ring.  What holds the backward
-// back: its three mma.sync a k-step (TF32 wgmma takes no transposed
-// operand) take about half its time, and in dQ the ds step about a third,
-// since the gradient product waits for ds and ds for the score products.
+// H100's balance point); the redesigns run them on the tensor cores as
+// 3xTF32 (a third of TF32's 495 TFLOP/s, against the CUDA cores' 67) through
+// a cp.async ring.  What holds them back: three mma.sync a k-step (TF32
+// wgmma takes no transposed operand) take about half the backward's time,
+// and in dQ the ds step about a third, since the gradient product waits for
+// ds and ds for the score products; the forward likewise runs S -> softmax
+// -> P.V in order in each warp, with two blocks of four warps an SM at D 64
+// to cover each other's waits.
 // bfloat16 forward: bytes and operations
 // nearly alike (about 0.015 ms for Q, K, V and O, 0.013 ms for the flops at
 // 989 TFLOP/s), so the kernel has to keep the tensor cores fed from tiles
@@ -1825,7 +1828,7 @@ constexpr int kTfWarps = 4;                 // warps per block, 16 own rows each
 constexpr int kTfThreads = 32 * kTfWarps;
 constexpr int kTfRows = 16 * kTfWarps;      // own rows per block
 constexpr int kTfStages = 2;                // stages of the ring
-constexpr int kTfKeys = 64;                 // keys per K/V tile of dQ's ring
+constexpr int kTfKeys = 64;                 // keys per K/V tile of dQ's ring (forward: at D 64)
 // blocks an SM should hold at D 64 (__launch_bounds__); shared memory holds
 // two at D 64 and one at D 128
 constexpr int kTfMinBlocks = 2;
@@ -1926,11 +1929,13 @@ __device__ __forceinline__ void tf_mma_nt(float (&c)[NB * 4], const float* a, in
 }
 
 // acc (16 x D, accumulator layout) += X . T: X (16 x 8 NB) in accumulator
-// layout (ds, p_eff^T or ds^T), T the tile's first 8 NB rows (8 NB x D).
+// layout (ds, p_eff^T, ds^T or p), T the tile's first 8 NB rows (8 NB x D).
 // k-step j holds rows 8j .. 8j + 7, column t of A (row t of B) row 8j + 2t and
 // column t + 4 row 8j + 2t + 1, which is where the accumulator has them.
-template <int D, int NB>
-__device__ __forceinline__ void tf_mma_nn(float (&acc)[D / 2], const float (&x)[NB * 4],
+// With N0 and NN, acc holds only the output columns 8 N0 .. 8 (N0 + NN) - 1
+// (the forward's P.V in column halves at D 128).
+template <int D, int NB, int N0 = 0, int NN = D / 8>
+__device__ __forceinline__ void tf_mma_nn(float (&acc)[NN * 4], const float (&x)[NB * 4],
                                           const float* tile) {
   const int g = (threadIdx.x % 32) / 4, t = threadIdx.x % 4;
   // element (8j + 2t, 8n + g) sits at piece (2n + g / 4) ^ 2t of its row, and
@@ -1950,11 +1955,12 @@ __device__ __forceinline__ void tf_mma_nn(float (&acc)[D / 2], const float (&x)[
     const float* re = r0 + 8 * j * D;
     const float* ro = re + D;
 #pragma unroll
-    for (int n = 0; n < D / 8; ++n) {
-      const int cn = 32 * (n / 4);
+    for (int n = 0; n < NN; ++n) {
+      const int nc = N0 + n;  // the column block in the tile
+      const int cn = 32 * (nc / 4);
       uint32_t bh0, bl0, bh1, bl1;
-      split_tf32(re[cn + pc[n % 4]], bh0, bl0);
-      split_tf32(ro[cn + pc[(n % 4) ^ 2]], bh1, bl1);
+      split_tf32(re[cn + pc[nc % 4]], bh0, bl0);
+      split_tf32(ro[cn + pc[(nc % 4) ^ 2]], bh1, bl1);
       mma_3xtf32(acc, n, ah, al, bh0, bh1, bl0, bl1);
     }
   }
@@ -2143,6 +2149,177 @@ flash_bwd_dkv_tf32_kernel(const float* __restrict__ q, const float* __restrict__
   }
 }
 
+// ---------------------------------------------------------------------------
+// The float32 forward on the tensor cores: flash_fwd_tf32_kernel<D>.  What
+// bounds the forward is its 4 x D flops a (row, key) pair; the FMA kernel
+// (flash_fwd_kernel, kept as the first design) runs them on the CUDA cores at
+// 67 TFLOP/s at best, behind a padded tile with synchronous loads and two
+// block barriers a tile.  This kernel takes both products as 3xTF32 on
+// mma.sync.m16n8k8, built from the backward's pieces: a block of four warps
+// owns 64 query rows (16 a warp) whose Q tile stays in shared memory in
+// tf_swz rows; K and V tiles of kTfKeys keys come through the backward's
+// two-stage cp.async ring with one barrier a tile; S = Q.K^T is tf_mma_nt,
+// and P.V is tf_mma_nn with P straight from the S accumulators (the key
+// permutation of tf_mma_nn puts each accumulator column where its A fragment
+// wants it).  A warp stops at its own diagonal.  The softmax is the FMA
+// kernel's, operation for operation (scores times scale, masked to -1e30,
+// expf against the running max, dropout after the row sum).
+//
+// The tensor core rounds each mma's float32 sum mostly toward zero, so a
+// running output accumulated in it over 2048 keys would carry a biased error
+// near the forward's 2e-5 gate.  Each tile's P.V therefore goes into a zeroed
+// accumulator and is folded into the running output in float32 FMAs,
+// o = o * alpha + pv: the tensor core never sums more than one tile's keys.
+// At D 128 the tile's P.V is formed in two halves of D, so the second
+// accumulator takes 32 registers a thread rather than 64.
+
+// the output columns of one P.V pass: all of D at 64, half of it at 128
+template <int D>
+__host__ __device__ constexpr int tf32_fwd_cols() { return D == 128 ? 64 : D; }
+// keys per K/V tile: 64 at D 64 (two blocks an SM); 32 at D 128, where 64-key
+// tiles leave shared memory for one block an SM and measured 16% slower on an
+// H100 (tools/torch_flash_fwd_sweep.py)
+template <int D>
+__host__ __device__ constexpr int tf32_fwd_keys() { return D == 128 ? 32 : kTfKeys; }
+
+// The FMA forward's online-softmax step on one warp's S accumulators (16 rows
+// x 8 NB keys from k0, flat accumulator layout): updates m and l, returns the
+// rescale of the running output in alpha, and leaves p (after dropout) in s.
+// kMask (tiles that cross a row's diagonal) sets invisible scores to -1e30
+// and their p to 0.
+template <int NB, bool kMask>
+__device__ __forceinline__ void fwd_softmax_tf(float (&s)[NB * 4], float (&m)[2], float (&l)[2],
+                                               float (&alpha)[2], const int (&row)[2], int k0,
+                                               int off, float scale, float rate, float keep,
+                                               uint32_t seed, int bh) {
+  const int t = threadIdx.x % 4;
+  float mx[2] = {kNegInf, kNegInf};
+#pragma unroll
+  for (int i = 0; i < NB * 4; ++i) {
+    const int h = (i % 4) / 2;
+    const bool vis = !kMask || row[h] + off >= k0 + 8 * (i / 4) + 2 * t + (i & 1);
+    s[i] = vis ? s[i] * scale : kNegInf;
+    mx[h] = fmaxf(mx[h], s[i]);
+  }
+  float m_new[2], psum[2] = {0.f, 0.f};
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    m_new[h] = fmaxf(m[h], quad_max(mx[h]));
+    alpha[h] = expf(m[h] - m_new[h]);
+  }
+#pragma unroll
+  for (int i = 0; i < NB * 4; ++i) {
+    const int h = (i % 4) / 2;
+    const int k_pos = k0 + 8 * (i / 4) + 2 * t + (i & 1);
+    const bool vis = !kMask || row[h] + off >= k_pos;
+    float p = vis ? expf(s[i] - m_new[h]) : 0.f;
+    psum[h] += p;
+    if (rate > 0.f) {
+      const float u = uniform01(seed, bh, row[h], k_pos);
+      p = u >= rate ? p / keep : 0.f;
+    }
+    s[i] = p;
+  }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    l[h] = l[h] * alpha[h] + quad_sum(psum[h]);
+    m[h] = m_new[h];
+  }
+}
+
+// o's columns 8 N0 .. 8 (N0 + NC / 8) - 1 = o * alpha + P.V over the tile's
+// rows (V), P.V summed on the tensor cores into a zeroed accumulator
+template <int D, int NB, int N0, int NC>
+__device__ __forceinline__ void fold_pv(float (&o)[D / 2], const float (&p)[NB * 4],
+                                        const float* vs, const float (&alpha)[2]) {
+  float pv[NC / 2];
+#pragma unroll
+  for (int i = 0; i < NC / 2; ++i) pv[i] = 0.f;
+  tf_mma_nn<D, NB, N0, NC / 8>(pv, p, vs);
+#pragma unroll
+  for (int i = 0; i < NC / 2; ++i) o[4 * N0 + i] = fmaf(o[4 * N0 + i], alpha[(i % 4) / 2], pv[i]);
+}
+
+template <int D>
+__global__ void __launch_bounds__(kTfThreads, kTfMinBlocks)
+flash_fwd_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                      const float* __restrict__ v, float* __restrict__ out,
+                      float* __restrict__ lse, int sq, int sk, int causal, float scale,
+                      float rate, float keep, uint32_t seed) {
+  constexpr int NS = kTfStages, BN = tf32_fwd_keys<D>(), NB = BN / 8, NC = tf32_fwd_cols<D>();
+  constexpr int kRowsF = kTfRows * D;  // floats of the block's Q tile
+  constexpr int kTileF = BN * D;       // floats of one K (or V) tile
+  extern __shared__ __align__(16) float tf_smem[];
+  // [Q][NS stages: K | V]
+  float* qs = tf_smem;
+  float* ring = qs + kRowsF;
+
+  const int bh = blockIdx.y;
+  const int warp = threadIdx.x / 32, g = (threadIdx.x % 32) / 4, t = threadIdx.x % 4;
+  const int q0 = blockIdx.x * kTfRows;  // the block's first row
+  const int w0 = q0 + 16 * warp;        // this warp's first row
+  const int off = sk - sq;
+  const int row[2] = {w0 + g, w0 + g + 8};
+  const float* kb = k + (size_t)bh * sk * D;
+  const float* vb = v + (size_t)bh * sk * D;
+  int k_end = sk;  // the block's keys; a warp stops at its own diagonal
+  if (causal) k_end = min(sk, max(0, q0 + kTfRows + off));
+  int w_end = sk;
+  if (causal) w_end = min(sk, max(0, w0 + 16 + off));
+
+  // Q, then the first K/V tile: one group
+  issue_rows_tf<D>(smem_u32(qs), q + ((size_t)bh * sq + q0) * D, kTfRows);
+  // tile i into stage i % NS, as one committed group (empty past the block's keys)
+  auto issue_tile = [&](int i) {
+    if (i * BN < k_end) {
+      float* st = ring + (i % NS) * 2 * kTileF;
+      issue_rows_tf<D>(smem_u32(st), kb + (size_t)i * BN * D, BN);
+      issue_rows_tf<D>(smem_u32(st + kTileF), vb + (size_t)i * BN * D, BN);
+    }
+    cp_async_commit();
+  };
+#pragma unroll
+  for (int i = 0; i < NS - 1; ++i) issue_tile(i);
+
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f}, o[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+
+  for (int k0 = 0, it = 0; k0 < k_end; k0 += BN, ++it) {
+    const float* ks = ring + (it % NS) * 2 * kTileF;
+    const float* vs = ks + kTileF;
+    cp_async_wait<NS - 2>();  // tile it has landed
+    // every thread's copies are in, and every warp is done with tile it - 1,
+    // whose stage the next issue refills
+    __syncthreads();
+    issue_tile(it + NS - 1);  // loads while tile it is computed
+
+    if (k0 < w_end) {  // warp-uniform
+      float s[NB * 4], alpha[2];
+      tf_mma_nt<D, NB>(s, qs, 16 * warp, ks);  // S = Q.K^T
+      if (causal && k0 + BN - 1 > w0 + off)
+        fwd_softmax_tf<NB, true>(s, m, l, alpha, row, k0, off, scale, rate, keep, seed, bh);
+      else
+        fwd_softmax_tf<NB, false>(s, m, l, alpha, row, k0, off, scale, rate, keep, seed, bh);
+      fold_pv<D, NB, 0, NC>(o, s, vs, alpha);  // o = o * alpha + P.V
+      if constexpr (D > NC) fold_pv<D, NB, NC / 8, NC>(o, s, vs, alpha);
+    }
+  }
+  // no copy may still be in flight when the block ends: with no visible key
+  // (k_end 0) the loop never waited for Q's group
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const float l_safe = fmaxf(l[h], 1e-30f);
+    float* orow = out + ((size_t)bh * sq + row[h]) * D;
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n)
+      *reinterpret_cast<float2*>(orow + 8 * n + 2 * t) =
+          make_float2(o[4 * n + 2 * h] / l_safe, o[4 * n + 2 * h + 1] / l_safe);
+    if (t == 0) lse[(size_t)bh * sq + row[h]] = m[h] + logf(l_safe);
+  }
+}
+
 constexpr size_t tile_bytes(int d) { return sizeof(float) * kTile * (d + 1); }
 constexpr size_t p_bytes() { return sizeof(float) * kTile * kPLd; }
 
@@ -2180,8 +2357,9 @@ cudaError_t fwd_wgmma(const bf16* q, const bf16* k, const bf16* v, bf16* out, fl
                 128 * NWG, smem, s, q, k, v, out, lse, sq, sk, causal, scale, rate, keep, seed);
 }
 
-// float32 inputs take the FMA kernels, bfloat16 inputs the tensor-core ones:
-// the wgmma redesign, or the first design when `first_design` is set
+// bfloat16 inputs take the wgmma redesign, float32 inputs the 3xTF32 kernel;
+// `first_design` launches the first design of either (the mma.sync kernel for
+// bfloat16, the FMA kernel for float32)
 template <typename T, int D>
 cudaError_t fwd(const void* q, const void* k, const void* v, void* out, float* lse, int bh,
                 int sq, int sk, int causal, float scale, float rate, float keep, uint32_t seed,
@@ -2200,10 +2378,17 @@ cudaError_t fwd(const void* q, const void* k, const void* v, void* out, float* l
     return fwd_wgmma<D, 2, D == 64 ? 64 : 128>(qp, kp, vp, op, lse, bh, sq, sk, causal, scale,
                                                 rate, keep, seed, s);
   } else {
-    return launch(flash_fwd_kernel<D>, sq / kTile, bh, kThreads,
-                  3 * tile_bytes(D) + p_bytes(), s, static_cast<const float*>(q),
-                  static_cast<const float*>(k), static_cast<const float*>(v),
-                  static_cast<float*>(out), lse, sq, sk, causal, scale, rate, keep, seed);
+    const float* qp = static_cast<const float*>(q);
+    const float* kp = static_cast<const float*>(k);
+    const float* vp = static_cast<const float*>(v);
+    float* op = static_cast<float*>(out);
+    if (first_design)
+      return launch(flash_fwd_kernel<D>, sq / kTile, bh, kThreads, 3 * tile_bytes(D) + p_bytes(),
+                    s, qp, kp, vp, op, lse, sq, sk, causal, scale, rate, keep, seed);
+    // Q, and the stages of K and V
+    const size_t smem = sizeof(float) * (kTfRows + kTfStages * 2 * tf32_fwd_keys<D>()) * (size_t)D;
+    return launch(flash_fwd_tf32_kernel<D>, sq / kTfRows, bh, kTfThreads, smem, s, qp, kp, vp,
+                  op, lse, sq, sk, causal, scale, rate, keep, seed);
   }
 }
 
@@ -2309,8 +2494,7 @@ cudaError_t bwd_dkv(const void* q, const void* k, const void* v, const void* dou
 // sk multiples of 64, d 64 or 128; all contiguous, in one dtype.
 // `first_design` launches a kernel's first design in place of its redesign (for
 // timing the two side by side): the bfloat16 kernels' mma.sync designs in place
-// of wgmma, and the float32 backward's FMA kernels in place of 3xTF32; the
-// float32 forward has one design and ignores it.
+// of wgmma, and the float32 kernels' FMA designs in place of 3xTF32.
 extern "C" int ff_flash_fwd(const void* q, const void* k, const void* v, void* out, void* lse,
                             int bh, int sq, int sk, int d, int causal, float scale, float rate,
                             float keep, unsigned int seed, int bf16_in, int first_design,

@@ -20,12 +20,20 @@
 // (G = 32) with its products on the tensor cores (at the serve shapes a
 // float32 pool's chunk moves 25 MB, 0.0080 ms at 3.35 TB/s, against 0.39
 // GFLOP, 0.0024 ms at 3xTF32's rate; an int8 pool's 6.3 MB, 0.0019 ms).
-// Neither path comes near that: both are bound by latency, the number of
-// blocks in flight and, in the single-pass path, a dependent chain of
-// shared-memory reads per element.
+// None of the paths comes near that: they are bound by latency (the chain
+// position -> block table -> page -> merge) and by how many blocks and bytes
+// are in flight, and the single pass by a dependent chain of shared-memory
+// reads per element as well.
 //
-// Two paths, chosen by the wrapper (ops/cuda/paged_attention.py split_plan):
+// Three paths, chosen by the wrapper (ops/cuda/paged_attention.py route):
 //
+// * Decode, split over pages (every pool format at G = 1, D 64 or 128, any
+//   BS): a block scores its split's keys straight from the pool in
+//   registers, the lanes of a group of 4-16 sharing a key, and the last
+//   split of a lane to finish merges them all; see the section "Decode path
+//   at G = 1" below.  Measured at the serve shapes on an H100 80GB HBM3 at
+//   700 W (tools/torch_paged_decode_sweep.py, chip_smoke.py; device time,
+//   q float32): see PERF.md section 6.
 // * Row groups, split over pages (every pool format at G >= SPLIT_MIN_ROWS
 //   = 2, D 64, BS dividing 64: the prefill chunk at G 32 and the speculative
 //   verify at G 4): the lane's rows score 64-key tiles on the tensor cores,
@@ -39,9 +47,9 @@
 //   0.079, bfloat16 pools 0.032 / 0.028 against 0.37 / 0.085, int8 pools
 //   0.028 / 0.027 against 0.48 / 0.12; kSplitTiles = 2 tiles per split
 //   (over int8 pools 1 and 4 were slower).
-// * Single pass (every pool format at G = 1, i.e. decode, and at any G
-//   where the row-group path does not take the shape: D != 64 or a BS that
-//   does not divide 64): grid (B, H, ceil(G / ROWS)), one block of four
+// * Single pass (every pool format at any G that neither split path takes:
+//   a head dim they do not take, or G >= 2 with a BS that does not divide
+//   64): grid (B, H, ceil(G / ROWS)), one block of four
 //   warps per (lane, head, row group), looping over the lane's pages 0..last
 //   in order.  Each warp carries up to kRowsPerWarp query rows with a
 //   float32 online softmax (running max m, running sum l, accumulator acc in
@@ -53,18 +61,22 @@
 //   its rows can see (last = the page of its last row, clamped to the table),
 //   once each, straight from the pool through the block table; no dense
 //   (B, H, SV, D) gather exists, and block 0 (the trash block idle lanes map)
-//   contributes only through positions the mask admits.
+//   contributes only through positions the mask admits.  It was the decode
+//   step's path before the decode path (0.078 ms over float32 pools, 0.12
+//   over int8, at the serve shapes).
 //
 // Either way a wrapper call is one launch in the wrapper's counts (LAUNCHES,
-// LAUNCHES_BY_POOL, and LAUNCHES_BY_ROUTE under "single" or "split"): the
-// row-group path's split and combine kernels are one call, so a serve run's
-// count stays 12 x (steps + prefill dispatches).
+// LAUNCHES_BY_POOL, and LAUNCHES_BY_ROUTE under "single", "split" or
+// "decode"): the row-group path's split and combine kernels are one call, so
+// a serve run's count stays 12 x (steps + prefill dispatches).
 
 // Quantized pools (TKV int8_t or __nv_fp8_e4m3): a page's two scale rows
 // ride the page's copies, fetched through the same block-table entry with
-// 4-byte cp.async copies (any BS).  Each stored element widens exactly (to
-// float32 in the single pass, to bfloat16 in the row-group path: an int8 or
-// e4m3 value is a bfloat16 value), and the scales are folded in rather than
+// 4-byte cp.async copies (any BS; the decode path loads a key's two scales
+// beside its 16-byte pieces).  Each stored element widens exactly (to
+// float32 in the single pass and the decode path, to bfloat16 in the
+// row-group path: an int8 or e4m3 value is a bfloat16 value), and the
+// scales are folded in rather than
 // multiplied into every element: the score is s_k = (q . Kq[k]) * sk[k] *
 // scale, and the probability that weights Vq[k] is p_k * sv[k] (the running
 // sum l takes p_k itself).  That is the JAX kernel's function (dequantize,
@@ -464,13 +476,10 @@ constexpr size_t split_smem_bytes() {
          sizeof(bf16) * ((size_t)kTileKeys * (D + 8) + (size_t)D * (kTileKeys + 8));
 }
 
-// The last page the rows [g0, g0 + rows) of a lane at pos0 can see, and the
-// number of splits (of kSplitTiles tiles of tp pages) that hold pages 0 .. last.
+// The last page the rows [g0, g0 + rows) of a lane at pos0 can see; the
+// splits that hold pages 0 .. last, of pps pages each, are last / pps + 1.
 __device__ __forceinline__ int group_last_page(int pos0, int g_end, int BS, int MB) {
   return min((pos0 + g_end - 1) / BS, MB - 1);
-}
-__device__ __forceinline__ int live_splits(int last, int tp) {
-  return (last / tp + kSplitTiles) / kSplitTiles;
 }
 
 template <typename TQ, typename TKV, int D>
@@ -967,34 +976,298 @@ paged_split_tf32_kernel(const float* __restrict__ q, const float* __restrict__ p
   }
 }
 
-// one thread per output element: merge the live splits of its row
+// Merge the live splits (of `pps` pages each) of row `row`, column d of lane
+// b, head h in float32 FMAs: M = max m_s over the splits with l_s > 0,
+// out = sum acc_s 2^(m_s - M) / sum l_s 2^(m_s - M).  The row-group path's
+// combine kernel and the decode kernel's last block of a (lane, head) run this
+// one body.  Its loads go through L2 only (the decode kernel reads partials
+// that other blocks of the same launch wrote) and are unrolled, so that a
+// thread's loads are in flight together.
 template <typename TQ>
-__global__ void __launch_bounds__(128)
-paged_combine_kernel(const float* __restrict__ part, const int* __restrict__ positions,
-                     TQ* __restrict__ out, int G, int H, int D, int BS, int MB, int splits) {
-  const int b = blockIdx.x, h = blockIdx.y;
-  const int idx = blockIdx.z * blockDim.x + threadIdx.x;
-  const int row = idx / D, d = idx % D;
-  if (row >= G) return;
+__device__ __forceinline__ void combine_splits(const float* part, const int* __restrict__ positions,
+                                               TQ* __restrict__ out, int b, int h, int row, int d,
+                                               int B, int G, int H, int D, int BS, int MB,
+                                               int splits, int pps) {
   const int g_end = min(G, (row / kGroupRows + 1) * kGroupRows);
   const int last = group_last_page(positions[b], g_end, BS, MB);
-  const int n = live_splits(last, kTileKeys / BS);
+  const int n = last / pps + 1;
   const size_t lane = ((size_t)b * H + h) * splits;
   const float* acc = part + lane * G * D + (size_t)row * D + d;
-  const float* ml = part + (size_t)gridDim.x * H * splits * G * D + lane * G * 2 + 2 * row;
+  const float* ml = part + (size_t)B * H * splits * G * D + lane * G * 2 + 2 * row;
   float mx = -FLT_MAX;
-  for (int s = 0; s < n; ++s)
-    if (ml[(size_t)s * G * 2 + 1] > 0.f) mx = fmaxf(mx, ml[(size_t)s * G * 2]);
-  float num = 0.f, den = 0.f;
+#pragma unroll 8
   for (int s = 0; s < n; ++s) {
-    const float ls = ml[(size_t)s * G * 2 + 1];
-    if (ls > 0.f) {
-      const float w = exp2f(ml[(size_t)s * G * 2] - mx);
-      den += ls * w;
-      num += acc[(size_t)s * G * D] * w;
+    const float2 v = __ldcg(reinterpret_cast<const float2*>(ml + (size_t)s * G * 2));
+    if (v.y > 0.f) mx = fmaxf(mx, v.x);
+  }
+  float num = 0.f, den = 0.f;
+#pragma unroll 8
+  for (int s = 0; s < n; ++s) {
+    const float2 v = __ldcg(reinterpret_cast<const float2*>(ml + (size_t)s * G * 2));
+    const float a = __ldcg(acc + (size_t)s * G * D);  // a split of this row's is written
+    if (v.y > 0.f) {
+      const float w = exp2f(v.x - mx);
+      den += v.y * w;
+      num += a * w;
     }
   }
   store(out + (((size_t)b * G + row) * H + h) * D + d, num / den);
+}
+
+// the row-group path's combine: one thread per output element
+template <typename TQ>
+__global__ void __launch_bounds__(128)
+paged_combine_kernel(const float* __restrict__ part, const int* __restrict__ positions,
+                     TQ* __restrict__ out, int G, int H, int D, int BS, int MB, int splits,
+                     int pps) {
+  const int idx = blockIdx.z * blockDim.x + threadIdx.x;
+  if (idx >= G * D) return;
+  combine_splits<TQ>(part, positions, out, blockIdx.x, blockIdx.y, idx / D, idx % D, gridDim.x,
+                     G, H, D, BS, MB, splits, pps);
+}
+
+// ---------------------------------------------------------------------------
+// Decode path at G = 1: one query row per lane, split over pages, no tensor
+// cores.  (The header note above describes the single pass; this section is
+// the decode path, for every pool format, at D 64 and 128 and any BS.)
+//
+// What bounds it.  A decode step reads every visible key and value of its
+// lane once and does 4 x D flops a key: far below the card's balance point,
+// so bytes bound it (at the serve shapes a float32 pool's step moves 25 MB,
+// 7.5 us at 3.35 TB/s; an int8 pool's 6.3 MB).  The single pass gives each
+// (lane, head) one block that walks all of the lane's pages in order, three
+// of its four warps idle at G = 1, and scores a key as D dependent FMAs on
+// shared-memory reads: a latency chain, with too few blocks and too few
+// bytes in flight to come near the bound.
+//
+// The design.  Grid (B, H, splits): each block takes kDecodeKeys keys' worth
+// of whole pages of one lane and head (decode_split_pages(BS) pages; a split
+// that starts past the lane's last visible page returns at once), so that at
+// the serve shapes (8 lanes x 12 heads, 512 positions, BS 16) 864 blocks
+// share the card's 132 SMs.  A key's row of D elements is spread over a
+// group of lanes that each load 16 bytes straight from the pool into
+// registers (16 lanes a float32 key at D 64, 8 a bfloat16 key, 4 an int8 or
+// e4m3 key), so one warp-wide load covers 32 / group keys; each lane issues
+// the loads of all its keys of the split (K and V, up to 8 of each) before it
+// uses any, which keeps 16-32 KB of loads in flight a block.  The group sums
+// its dot products with shuffles, and each lane keeps the weighted sum of V
+// for its own 16-byte slice of D over its group's keys.  A 1-byte element
+// is widened 4 at a time (int8: __byte_perm into a float's mantissa, one
+// FADD each; e4m3: paired f16x2 conversions), a bfloat16 element by a shift.
+// The online softmax is base 2 in float32; the scales fold in as the other
+// paths fold them (the score takes sk[k], the weight of Vq[k] is p * sv[k],
+// l takes p).  Only visible keys are read: the split's keys stop at the
+// lane's position, so no poisoned page and no key past it enters a sum.
+// The four warps take interleaved keys and merge through shared memory at
+// the end of the split; the split's (acc, m, l) go to the workspace laid out
+// as the row-group path's at G = 1.  The last of a lane's live splits to
+// finish (a per-(lane, head) count, bumped atomically after a fence) then
+// merges them all with the row-group path's combine (combine_splits) and
+// sets the count back to 0.  A second kernel, as the row-group path
+// launches, took 4.7 us of device time at the serve shapes on an H100, and
+// left out it saved 6-7 us a call (tools/torch_paged_decode_sweep.py).
+constexpr int kDecodeWarps = 4;
+constexpr int kDecodeKeys = 64;  // keys a split aims at, in whole pages
+// 16-byte loads of K (and of V) a lane issues before it uses them, and the
+// blocks an SM should hold at D 64 (__launch_bounds__; half as many at D
+// 128): at most 64 registers a thread, so that the serve shapes' 864 blocks
+// run in one wave (8 an SM, not 4-6 at 77-106 registers).  On an H100 that
+// was faster over every pool format than 8 loads without the cap
+// (tools/torch_paged_decode_sweep.py).
+constexpr int kDecodeLoads = 4;
+constexpr int kDecodeMinBlocks = 8;
+
+// pages a decode split holds at page size BS
+__host__ __device__ constexpr int decode_split_pages(int BS) {
+  return BS >= kDecodeKeys ? 1 : kDecodeKeys / BS;
+}
+
+// the 16 bytes r as E = 16 / sizeof(TKV) stored elements, widened exactly to float32
+template <typename TKV>
+__device__ __forceinline__ void widen16(const uint4& r, float (&f)[16 / sizeof(TKV)]) {
+  const uint32_t w[4] = {r.x, r.y, r.z, r.w};
+  if constexpr (std::is_same<TKV, float>::value) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) f[i] = __uint_as_float(w[i]);
+  } else if constexpr (std::is_same<TKV, __nv_bfloat16>::value) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      f[2 * i] = __uint_as_float(w[i] << 16);
+      f[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+    }
+  } else if constexpr (std::is_same<TKV, int8_t>::value) {
+    // byte b of x = w ^ 0x80808080 is v + 128; 2^23 + (v + 128) - (2^23 + 128) = v
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const uint32_t x = w[i] ^ 0x80808080u;
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        f[4 * i + j] = __uint_as_float(__byte_perm(x, 0x4B000000u, 0x7650u | j)) - 8388736.0f;
+    }
+  } else {  // e4m3: two at a time to f16x2 (exact), then to float32 (exact)
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const __half2_raw h = __nv_cvt_fp8x2_to_halfraw2(
+            static_cast<__nv_fp8x2_storage_t>(w[i] >> (16 * j)), __NV_E4M3);
+        const float2 x = __half22float2(__half2(h));
+        f[4 * i + 2 * j] = x.x;
+        f[4 * i + 2 * j + 1] = x.y;
+      }
+  }
+}
+
+template <typename TQ, typename TKV, int D>
+__global__ void __launch_bounds__(32 * kDecodeWarps,
+                                  D == 64 ? kDecodeMinBlocks : kDecodeMinBlocks / 2)
+paged_decode_kernel(const TQ* __restrict__ q, const TKV* __restrict__ pool_k,
+                    const TKV* __restrict__ pool_v, const float* __restrict__ scale_k,
+                    const float* __restrict__ scale_v, const int* __restrict__ positions,
+                    const int* __restrict__ block_tables, float* part,
+                    int* __restrict__ counts, TQ* __restrict__ out, int H, int BS, int MB,
+                    int splits, int pps, float scale_log2) {
+  constexpr bool kQuant = is_quantized<TKV>();
+  constexpr int E = 16 / (int)sizeof(TKV);  // elements a 16-byte load holds
+  constexpr int LK = D / E;                 // lanes a key
+  constexpr int KPL = 32 / LK;              // keys a warp-wide load
+  static_assert(LK >= 1 && LK <= 32 && (LK & (LK - 1)) == 0, "a key's lanes: a power of 2");
+  // loads a lane issues before it uses them: a split's kDecodeKeys keys in
+  // one batch where that takes at most kDecodeLoads of K (and of V)
+  constexpr int NL = kDecodeKeys / kDecodeWarps / KPL > kDecodeLoads ? kDecodeLoads
+                     : kDecodeKeys / kDecodeWarps / KPL < 1 ? 1
+                     : kDecodeKeys / kDecodeWarps / KPL;
+  __shared__ __align__(16) float merge_acc[kDecodeWarps][D];
+  __shared__ float merge_ml[kDecodeWarps][2];
+  __shared__ bool merges_lane;
+
+  const int b = blockIdx.x, h = blockIdx.y, split = blockIdx.z;
+  const int pos = positions[b];
+  const int last = group_last_page(pos, 1, BS, MB);
+  if (split * pps > last) return;  // nothing here is visible to the lane
+  const int key0 = split * pps * BS;
+  // the split's visible keys: its pages up to the lane's position
+  const int key_end = min((split + 1) * pps * BS, min(pos + 1, MB * BS));
+  const int* table = block_tables + (size_t)b * MB;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int kq = lane / LK, c = lane % LK;  // the key of the load, the lane's slice of D
+
+  float qv[E];
+  const TQ* qr = q + ((size_t)b * H + h) * D + c * E;
+#pragma unroll
+  for (int e = 0; e < E; ++e) qv[e] = to_f32(qr[e]);
+
+  float m = -FLT_MAX, l = 0.f, acc[E];
+#pragma unroll
+  for (int e = 0; e < E; ++e) acc[e] = 0.f;
+
+  const int units = (key_end - key0 + KPL - 1) / KPL;  // warp-wide loads of the split
+  for (int u0 = warp; u0 < units; u0 += kDecodeWarps * NL) {
+    uint4 kr[NL], vr[NL];
+    float ks[NL], vs[NL];  // the keys' scales (1-byte pools)
+    bool live[NL];
+#pragma unroll
+    for (int i = 0; i < NL; ++i) {
+      const int key = key0 + (u0 + kDecodeWarps * i) * KPL + kq;
+      live[i] = key < key_end;
+      kr[i] = vr[i] = make_uint4(0u, 0u, 0u, 0u);
+      ks[i] = vs[i] = 0.f;
+      if (live[i]) {
+        const int page = key / BS, slot = key - page * BS;
+        const int blk = table[page];
+        const size_t at = (((size_t)blk * H + h) * BS + slot) * D + c * E;
+        kr[i] = __ldg(reinterpret_cast<const uint4*>(pool_k + at));
+        vr[i] = __ldg(reinterpret_cast<const uint4*>(pool_v + at));
+        if constexpr (kQuant) {
+          ks[i] = __ldg(scale_k + (size_t)blk * BS + slot);
+          vs[i] = __ldg(scale_v + (size_t)blk * BS + slot);
+        }
+      }
+    }
+    float s[NL], mx = -FLT_MAX;
+#pragma unroll
+    for (int i = 0; i < NL; ++i) {
+      float kf[E];
+      widen16<TKV>(kr[i], kf);
+      float dot = 0.f;
+#pragma unroll
+      for (int e = 0; e < E; ++e) dot = fmaf(qv[e], kf[e], dot);
+#pragma unroll
+      for (int o = LK / 2; o > 0; o >>= 1) dot += __shfl_xor_sync(0xffffffffu, dot, o);
+      if constexpr (kQuant) dot *= ks[i];  // the key's scale, folded in
+      s[i] = live[i] ? dot * scale_log2 : -FLT_MAX;
+      mx = fmaxf(mx, s[i]);
+    }
+#pragma unroll
+    for (int o = LK; o < 32; o <<= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
+    const float m_new = fmaxf(m, mx);
+    const float alpha = exp2f(m - m_new);
+    float psum = 0.f;
+#pragma unroll
+    for (int e = 0; e < E; ++e) acc[e] *= alpha;
+#pragma unroll
+    for (int i = 0; i < NL; ++i) {
+      const float p = s[i] == -FLT_MAX ? 0.f : exp2f(s[i] - m_new);
+      psum += p;
+      const float w = kQuant ? p * vs[i] : p;  // V's scale folded into its weight
+      float vf[E];
+      widen16<TKV>(vr[i], vf);
+#pragma unroll
+      for (int e = 0; e < E; ++e) acc[e] = fmaf(w, vf[e], acc[e]);
+    }
+    // the lanes of a key group hold one sum; add the groups'
+#pragma unroll
+    for (int o = LK; o < 32; o <<= 1) psum += __shfl_xor_sync(0xffffffffu, psum, o);
+    l = l * alpha + psum;
+    m = m_new;
+  }
+  // the warp's weighted sum of V: add the key groups' slices of D
+#pragma unroll
+  for (int o = LK; o < 32; o <<= 1)
+#pragma unroll
+    for (int e = 0; e < E; ++e) acc[e] += __shfl_xor_sync(0xffffffffu, acc[e], o);
+  if (lane < LK) {
+#pragma unroll
+    for (int e = 0; e < E; e += 4)
+      *reinterpret_cast<float4*>(&merge_acc[warp][c * E + e]) =
+          make_float4(acc[e], acc[e + 1], acc[e + 2], acc[e + 3]);
+  }
+  if (lane == 0) {
+    merge_ml[warp][0] = m;
+    merge_ml[warp][1] = l;
+  }
+  __syncthreads();
+  // merge the warps (a warp that saw no key has l = 0 and weight 0) and
+  // write the split's partials, laid out as the row-group path's at G = 1
+  float mw = -FLT_MAX;
+#pragma unroll
+  for (int w = 0; w < kDecodeWarps; ++w) mw = fmaxf(mw, merge_ml[w][0]);
+  const size_t lane_split = ((size_t)b * H + h) * splits + split;
+  for (int d = threadIdx.x; d < D; d += blockDim.x) {
+    float num = 0.f;
+#pragma unroll
+    for (int w = 0; w < kDecodeWarps; ++w) num += merge_acc[w][d] * exp2f(merge_ml[w][0] - mw);
+    part[lane_split * D + d] = num;
+  }
+  if (threadIdx.x == 0) {
+    float den = 0.f;
+#pragma unroll
+    for (int w = 0; w < kDecodeWarps; ++w) den += merge_ml[w][1] * exp2f(merge_ml[w][0] - mw);
+    float* ml = part + (size_t)gridDim.x * H * splits * D + lane_split * 2;
+    *reinterpret_cast<float2*>(ml) = make_float2(mw, den);
+  }
+  // the last of the lane's live splits to finish merges them all; it sets
+  // the (lane, head)'s count back to 0 for the next call
+  __threadfence();  // this block's partials are visible before its count
+  __syncthreads();
+  int* count = counts + (size_t)b * H + h;
+  if (threadIdx.x == 0) merges_lane = atomicAdd(count, 1) == last / pps;
+  __syncthreads();
+  if (!merges_lane) return;
+  __threadfence();  // every split's partials, as counted, before they are read
+  for (int d = threadIdx.x; d < D; d += blockDim.x)
+    combine_splits<TQ>(part, positions, out, b, h, 0, d, gridDim.x, 1, H, D, BS, MB, splits, pps);
+  if (threadIdx.x == 0) *count = 0;
 }
 
 template <typename TQ, typename TKV, int D>
@@ -1029,7 +1302,21 @@ cudaError_t launch_split(const void* q, const void* pool_k, const void* pool_v,
   if (err != cudaSuccess) return err;
   paged_combine_kernel<TQ><<<dim3(B, H, (G * D + 127) / 128), 128, 0, stream>>>(
       static_cast<const float*>(part), static_cast<const int*>(positions),
-      static_cast<TQ*>(out), G, H, D, BS, MB, splits);
+      static_cast<TQ*>(out), G, H, D, BS, MB, splits, kSplitTiles * (kTileKeys / BS));
+  return cudaGetLastError();
+}
+
+template <typename TQ, typename TKV, int D>
+cudaError_t launch_decode(const void* q, const void* pool_k, const void* pool_v,
+                          const void* scale_k, const void* scale_v, const void* positions,
+                          const void* block_tables, void* out, void* part, void* counts, int B,
+                          int H, int BS, int MB, int splits, float scale, cudaStream_t stream) {
+  paged_decode_kernel<TQ, TKV, D><<<dim3(B, H, splits), 32 * kDecodeWarps, 0, stream>>>(
+      static_cast<const TQ*>(q), static_cast<const TKV*>(pool_k),
+      static_cast<const TKV*>(pool_v), static_cast<const float*>(scale_k),
+      static_cast<const float*>(scale_v), static_cast<const int*>(positions),
+      static_cast<const int*>(block_tables), static_cast<float*>(part), static_cast<int*>(counts),
+      static_cast<TQ*>(out), H, BS, MB, splits, decode_split_pages(BS), scale * kLog2e);
   return cudaGetLastError();
 }
 
@@ -1116,5 +1403,54 @@ extern "C" int ff_paged_attention_split(const void* q, const void* pool_k, const
     }
   }
 #undef FF_SPLIT
+  return static_cast<int>(err);
+}
+
+// The decode path (see its section above): G = 1, every pool format, as
+// ff_paged_attention takes them, at D 64 or 128 and any BS.  `part` is a
+// float32 workspace of `part_floats` values; the launch needs B x H x splits
+// x (D + 2) of them, splits = ceil(MB / decode_split_pages(BS)), and refuses
+// a smaller one.  `counts` is B x H int32 counts, 0 before the launch and 0
+// again after it (the kernel sets each back): calls that share it run one at
+// a time, on one stream.
+extern "C" int ff_paged_attention_decode(const void* q, const void* pool_k, const void* pool_v,
+                                         const void* scale_k, const void* scale_v,
+                                         const void* positions, const void* block_tables,
+                                         void* out, void* part, long long part_floats,
+                                         void* counts, int B, int H, int D, int BS, int MB,
+                                         float scale, int q_bf16, int kv_format, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool quant = kv_format == 2 || kv_format == 3;
+  if (kv_format < 0 || kv_format > 3 || (q_bf16 && kv_format == 0) ||
+      quant != (scale_k != nullptr && scale_v != nullptr) || (D != 64 && D != 128) || BS < 1 ||
+      MB < 1 || counts == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int pages = decode_split_pages(BS);
+  const int splits = (MB + pages - 1) / pages;
+  if ((long long)B * H * splits * (D + 2) > part_floats || splits > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+#define FF_DECODE(TQ, TKV)                                                               \
+  (D == 64 ? launch_decode<TQ, TKV, 64>(q, pool_k, pool_v, scale_k, scale_v, positions,    \
+                                        block_tables, out, part, counts, B, H, BS, MB, \
+                                        splits, scale, s)                               \
+           : launch_decode<TQ, TKV, 128>(q, pool_k, pool_v, scale_k, scale_v, positions,   \
+                                         block_tables, out, part, counts, B, H, BS, MB, \
+                                         splits, scale, s))
+  cudaError_t err;
+  if (q_bf16) {
+    switch (kv_format) {
+      case 1: err = FF_DECODE(__nv_bfloat16, __nv_bfloat16); break;
+      case 2: err = FF_DECODE(__nv_bfloat16, int8_t); break;
+      default: err = FF_DECODE(__nv_bfloat16, __nv_fp8_e4m3); break;
+    }
+  } else {
+    switch (kv_format) {
+      case 0: err = FF_DECODE(float, float); break;
+      case 1: err = FF_DECODE(float, __nv_bfloat16); break;
+      case 2: err = FF_DECODE(float, int8_t); break;
+      default: err = FF_DECODE(float, __nv_fp8_e4m3); break;
+    }
+  }
+#undef FF_DECODE
   return static_cast<int>(err);
 }

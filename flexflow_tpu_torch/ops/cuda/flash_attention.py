@@ -17,13 +17,15 @@ for bit, so forward and backward rebuild the same mask from the seed.
   ``LAUNCHES[kind]`` per launch; a build or launch failure raises, and
   nothing falls back.  On CPU tensors it runs the plain versions.  On
   bfloat16 inputs each of the three launches its Hopper redesign on
-  ``wgmma``; on float32 inputs the two backward kernels run on the tensor
-  cores as 3xTF32 (each product as three TF32 products of the operands'
-  split halves: within the float32 backward's 1e-4 of the plain version,
-  though farther off than FMAs, as the tensor cores round their float32
-  sums mostly toward zero) and the forward on the CUDA cores.  ``first_design=True`` (keyword-only, on ``flash_fwd``,
-  ``flash_bwd_dq`` and ``flash_bwd_dkv``) launches the design a redesign
-  replaced, for timing the two side by side.
+  ``wgmma``; on float32 inputs all three run on the tensor cores as
+  3xTF32 (each product as three TF32 products of the operands' split
+  halves: within the float32 gates of the plain version, though farther
+  off than FMAs, as the tensor cores round their float32 sums mostly
+  toward zero; the forward sums each key tile's P.V apart and adds it to
+  the running output in float32).  ``first_design=True`` (keyword-only,
+  on ``flash_fwd``, ``flash_bwd_dq`` and ``flash_bwd_dkv``) launches the
+  design a redesign replaced (the float32 kernels' FMA designs on the
+  CUDA cores), for timing the two side by side.
 * :func:`flash_attention_fwd_plain`, :func:`flash_attention_bwd_dq_plain`
   and :func:`flash_attention_bwd_dkv_plain` are the plain PyTorch versions
   of the three kernels, with the same contract (O and a compact float32
@@ -300,8 +302,9 @@ def _launch(kind: str, fn, ptrs, q, sk, causal, dropout_rate, seed, *extra) -> N
 def flash_fwd(q, k, v, causal=False, dropout_rate=0.0, seed=0, *, first_design=False):
     """(out, lse) of contiguous (B, H, S, D) inputs: the ``flash_fwd``
     kernel on CUDA tensors, :func:`flash_attention_fwd_plain` on CPU ones.
-    ``first_design`` launches the bfloat16 forward's first design in place
-    of its redesign (for timing; float32 inputs ignore it)."""
+    ``first_design`` launches the forward's first design in place of its
+    redesign, for timing (bfloat16: the mma.sync kernel; float32: the FMA
+    kernel)."""
     if q.device.type == "cpu":
         return flash_attention_fwd_plain(q, k, v, causal, dropout_rate, seed)
     B, H, sq, _ = q.shape

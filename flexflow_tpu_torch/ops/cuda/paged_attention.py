@@ -12,16 +12,18 @@ allocator's trash block.  Row ``g`` attends positions
 * :func:`paged_attention` is the wrapper.  On CUDA tensors it launches
   the hand-written kernel ``csrc/paged_attention.cu`` (which replaces
   the TPU kernel ``_kernel`` of the JAX module, full-precision and
-  quantized) on one of two routes (:func:`split_plan`): the row-group
-  path, split over pages, for G >= :data:`SPLIT_MIN_ROWS` rows at D 64
-  and a BS dividing 64, over every pool format; the single pass for
-  every other call (decode, G = 1, among them).  It adds one to
-  :data:`LAUNCHES`, to :data:`LAUNCHES_BY_POOL` under the pool's dtype
-  and to :data:`LAUNCHES_BY_ROUTE` under the route, once per call (the
-  row-group path's split and combine kernels are one call); a build or
-  launch failure raises.  On CPU tensors it takes the plain version and
-  counts nothing.  It never falls back from CUDA to the plain version
-  or from one route to the other.
+  quantized) on one of three routes (:func:`route`): the decode path,
+  split over pages, for one row per lane (G = 1, decode) at D 64 or 128
+  (:func:`decode_plan`); the row-group path, split over pages, for
+  G >= :data:`SPLIT_MIN_ROWS` rows at D 64 and a BS dividing 64
+  (:func:`split_plan`); the single pass for every other call.  Every
+  route takes every pool format.  It adds one to :data:`LAUNCHES`, to
+  :data:`LAUNCHES_BY_POOL` under the pool's dtype and to
+  :data:`LAUNCHES_BY_ROUTE` under the route, once per call (the
+  row-group path's split and combine kernels are one call); a build or launch
+  failure raises.  On CPU tensors it takes the plain version and counts
+  nothing.  It never falls back from CUDA to the plain version or from
+  one route to another.
 * :func:`paged_attention_plain` is the plain PyTorch version: gather
   ``pool[block_tables]`` to (B, H, SV, D) (times the gathered scale rows
   when quantized), mask ``k_pos <= pos0 + g``,
@@ -29,9 +31,9 @@ allocator's trash block.  Row ``g`` attends positions
   engine's ``attend`` computes (``attn="gather"``) and what the CPU
   tests run.
 * :func:`paged_attention_split_plain` is the plain version of the
-  kernel's row-group path (:data:`SPLIT_MIN_ROWS` rows or more): the
-  softmax taken over segments of pages, each segment's (max, sum,
-  weighted sum) kept, then merged.  Only the tests use it.
+  kernel's two split paths (decode and row groups): the softmax taken
+  over segments of pages, each segment's (max, sum, weighted sum) kept,
+  then merged.  Only the tests use it.
 """
 
 from __future__ import annotations
@@ -46,12 +48,14 @@ __all__ = [
     "LAUNCHES_BY_POOL",
     "LAUNCHES_BY_ROUTE",
     "MAX_HEAD_DIM",
+    "decode_plan",
     "paged_attention",
     "paged_attention_plain",
     "paged_attention_split_plain",
     "paged_decode_attention",
     "paged_prefill_attention",
     "resolve_serve_attn",
+    "route",
     "split_plan",
 ]
 
@@ -61,9 +65,10 @@ LAUNCHES = 0
 # the same launches by pool dtype name ("float32", "bfloat16", "int8",
 # "float8_e4m3fn")
 LAUNCHES_BY_POOL: dict = {}
-# the same launches by route: "single" (the single pass) or "split" (the
-# row-group path, split over pages, and its combine)
-LAUNCHES_BY_ROUTE = {"single": 0, "split": 0}
+# the same launches by route: "single" (the single pass), "split" (the
+# row-group path, split over pages, and its combine) or "decode" (the
+# decode path, split over pages, whose last split of a lane merges them)
+LAUNCHES_BY_ROUTE = {"single": 0, "split": 0, "decode": 0}
 
 MAX_HEAD_DIM = 256  # the kernel keeps D / 32 accumulators per lane, at most 8
 # calls with at least this many rows per lane take the kernel's row-group
@@ -75,11 +80,25 @@ SPLIT_MIN_ROWS = 2
 # kSplitTiles, its one head dim); the kernel computes its splits itself and
 # refuses a workspace smaller than these give
 _TILE_KEYS, _SPLIT_TILES, _SPLIT_HEAD_DIM = 64, 2, 64
+# calls with one row per lane (decode) take the kernel's decode path at
+# these head dims, over every pool format and any BS; False sends them to
+# the single pass (or, with SPLIT_MIN_ROWS 1, the row-group path), which is
+# how the designs it replaced are timed beside it
+DECODE_PATH = True
+# the decode path's shapes, as csrc/paged_attention.cu fixes them
+# (kDecodeKeys: a split holds that many keys' worth of whole pages, at
+# least one); the kernel computes its splits itself and refuses a smaller
+# workspace
+_DECODE_KEYS, _DECODE_HEAD_DIMS = 64, (64, 128)
 _FLOATS = (torch.float32, torch.bfloat16)
 _QUANT = (torch.int8, torch.float8_e4m3fn)
 # the kernel's pool-format codes (csrc/paged_attention.cu)
 _POOL_FORMAT = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2, torch.float8_e4m3fn: 3}
 _lib = None
+# the decode path's per-(lane, head) split counts, int32 zeros by (device,
+# stream): the kernel's last split of a lane sets its count back to 0, so a
+# buffer stays zero between the calls of its stream, which run in order
+_COUNTS: dict = {}
 
 
 def resolve_serve_attn(mode: str, device: torch.device) -> str:
@@ -158,13 +177,36 @@ def split_plan(G, D, BS, MB, pool_dtype):
     """``(splits, pages per split)`` of the kernel's row-group path for
     ``G`` rows per lane over tables of ``MB`` pages of ``BS`` in a pool of
     ``pool_dtype`` (float32, bfloat16, int8 or float8_e4m3fn), or None
-    where the single pass runs (fewer rows, a head dim or page size the
-    path does not take)."""
+    where the path does not take the call (fewer rows, a head dim or page
+    size it does not take); :func:`route` tries :func:`decode_plan` first."""
     if (pool_dtype not in _POOL_FORMAT or G < SPLIT_MIN_ROWS or D != _SPLIT_HEAD_DIM
             or _TILE_KEYS % BS):
         return None
     pages = _SPLIT_TILES * (_TILE_KEYS // BS)
     return -(-MB // pages), pages
+
+
+def decode_plan(G, D, BS, MB, pool_dtype):
+    """``(splits, pages per split)`` of the kernel's decode path for one
+    row per lane (``G`` 1) over tables of ``MB`` pages of ``BS`` in a pool
+    of ``pool_dtype``, or None where another path runs (more rows, a head
+    dim other than 64 and 128, :data:`DECODE_PATH` off)."""
+    if (not DECODE_PATH or pool_dtype not in _POOL_FORMAT or G != 1
+            or D not in _DECODE_HEAD_DIMS):
+        return None
+    pages = max(1, _DECODE_KEYS // BS)
+    return -(-MB // pages), pages
+
+
+def route(G, D, BS, MB, pool_dtype):
+    """The kernel path a call of these shapes takes: ``"decode"``
+    (:func:`decode_plan`), else ``"split"`` (:func:`split_plan`), else
+    ``"single"``."""
+    if decode_plan(G, D, BS, MB, pool_dtype) is not None:
+        return "decode"
+    if split_plan(G, D, BS, MB, pool_dtype) is not None:
+        return "split"
+    return "single"
 
 
 def paged_attention_split_plain(q, pool_k, pool_v, positions, block_tables, scale=None,
@@ -272,10 +314,25 @@ def _library():
             + [ctypes.c_float] + [ctypes.c_int] * 2 + [ctypes.c_void_p]
         )
         lib.ff_paged_attention_split.restype = ctypes.c_int
+        lib.ff_paged_attention_decode.argtypes = (
+            [ctypes.c_void_p] * 9 + [ctypes.c_longlong, ctypes.c_void_p] + [ctypes.c_int] * 5
+            + [ctypes.c_float] + [ctypes.c_int] * 2 + [ctypes.c_void_p]
+        )
+        lib.ff_paged_attention_decode.restype = ctypes.c_int
         lib.ff_cuda_error_string.argtypes = [ctypes.c_int]
         lib.ff_cuda_error_string.restype = ctypes.c_char_p
         _lib = lib
     return _lib
+
+
+def _decode_counts(device, stream, n):
+    """At least ``n`` int32 zeros for the decode path's split counts, kept
+    for ``device`` and ``stream``."""
+    key = (device.index, stream)
+    counts = _COUNTS.get(key)
+    if counts is None or counts.numel() < n:
+        counts = _COUNTS[key] = torch.zeros(n, dtype=torch.int32, device=device)
+    return counts
 
 
 def paged_attention(q, pool_k, pool_v, positions, block_tables, scale=None,
@@ -303,7 +360,7 @@ def paged_attention(q, pool_k, pool_v, positions, block_tables, scale=None,
     BS = pool_k.shape[2]
     MB = block_tables.shape[1]
     out = torch.empty_like(q)
-    plan = split_plan(G, D, BS, MB, pool_k.dtype)
+    path = route(G, D, BS, MB, pool_k.dtype)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         tensors = (q.data_ptr(), pool_k.data_ptr(), pool_v.data_ptr(),
@@ -311,23 +368,30 @@ def paged_attention(q, pool_k, pool_v, positions, block_tables, scale=None,
                    None if scale_v is None else scale_v.data_ptr(),
                    positions.data_ptr(), block_tables.data_ptr(), out.data_ptr())
         formats = (int(q.dtype == torch.bfloat16), _POOL_FORMAT[pool_k.dtype], stream)
-        if plan is None:
+        if path == "single":
             rc = lib.ff_paged_attention(*tensors, B, G, H, D, BS, MB, float(scale), *formats)
         else:
-            # the splits' (acc, m, l) partials; the launch's combine pass
-            # reads them back
+            # the splits' (acc, m, l) partials, which the launch merges
+            plan = (decode_plan if path == "decode" else split_plan)(G, D, BS, MB,
+                                                                     pool_k.dtype)
             part = torch.empty(B * H * plan[0] * G * (D + 2), dtype=torch.float32,
                                device=q.device)
-            rc = lib.ff_paged_attention_split(
-                *tensors, part.data_ptr(), part.numel(), B, G, H, D, BS, MB, float(scale),
-                *formats)
+            if path == "decode":
+                counts = _decode_counts(q.device, stream, B * H)
+                rc = lib.ff_paged_attention_decode(
+                    *tensors, part.data_ptr(), part.numel(), counts.data_ptr(), B, H, D, BS, MB,
+                    float(scale), *formats)
+            else:
+                rc = lib.ff_paged_attention_split(
+                    *tensors, part.data_ptr(), part.numel(), B, G, H, D, BS, MB,
+                    float(scale), *formats)
     if rc != 0:
         msg = lib.ff_cuda_error_string(rc).decode(errors="replace")
         raise RuntimeError(f"paged_attention kernel launch failed: {msg} (cudaError {rc})")
     LAUNCHES += 1
     name = str(pool_k.dtype).replace("torch.", "")
     LAUNCHES_BY_POOL[name] = LAUNCHES_BY_POOL.get(name, 0) + 1
-    LAUNCHES_BY_ROUTE["single" if plan is None else "split"] += 1
+    LAUNCHES_BY_ROUTE[path] += 1
     return out
 
 

@@ -250,20 +250,24 @@ def test_attention_op_takes_the_kernel_whenever_its_contract_holds(
 
 
 
-@pytest.mark.parametrize("kernel", ["dq", "dkv"])
+@pytest.mark.parametrize("kernel", ["dq", "dkv", "fwd"])
 def test_first_design_on_cpu_tensors_returns_the_plain_version(kernel):
     """``first_design=True`` picks a CUDA kernel's first design; on CPU
     float32 tensors the wrapper runs the plain version whatever it says."""
     q, k, v, g = (torch.from_numpy(x) for x in _inputs(1, 2, 256, 256, 64, seed=11))
     out, lse = tfa.flash_attention_fwd_plain(q, k, v, True)
     args = (q, k, v, g, lse, tfa.flash_delta(out, g), True, 0.1, 5)
-    wrapper, plain = {"dq": (tfa.flash_bwd_dq, tfa.flash_attention_bwd_dq_plain),
+    if kernel == "fwd":
+        args = (q, k, v, True, 0.1, 5)
+    wrapper, plain = {"fwd": (tfa.flash_fwd, tfa.flash_attention_fwd_plain),
+                      "dq": (tfa.flash_bwd_dq, tfa.flash_attention_bwd_dq_plain),
                       "dkv": (tfa.flash_bwd_dkv, tfa.flash_attention_bwd_dkv_plain)}[kernel]
     launches = dict(tfa.LAUNCHES)
     got = wrapper(*args, first_design=True)
     assert tfa.LAUNCHES == launches
     want = plain(*args)
-    for a, b in zip(got if kernel == "dkv" else (got,), want if kernel == "dkv" else (want,)):
+    pair = kernel != "dq"  # (out, lse) or (dk, dv)
+    for a, b in zip(got if pair else (got,), want if pair else (want,)):
         assert a.dtype == torch.float32
         assert torch.equal(a, b)
 
@@ -331,3 +335,83 @@ def test_3xtf32_products_hold_float32_error_level(d):
             err3, err1 = _rel(a, w), _rel(b, w)
             assert err3 <= 1e-4, (name, err3)
             assert err1 >= 100 * err3, (name, err1, err3)
+
+
+# --- the float32 forward's 3xTF32 tiles, emulated in numpy ------------------
+# flash_fwd_tf32_kernel takes S = Q.K^T and each 64-key tile's P.V as 3xTF32
+# mma.sync products.  The emulation below rounds every mma's sum toward zero,
+# as an H100's tensor core mostly does (tools/torch_tf32_probe.py), and merges
+# the tiles by the kernel's float32 online softmax.  The kernel sums each
+# tile's P.V into a zeroed accumulator and folds it into the running output
+# as o * alpha + pv in float32; the alternative, one running accumulator kept
+# in the tensor core across all tiles, is emulated beside it.
+
+def _rz32(x):
+    """float64 -> float32, rounded toward zero."""
+    y = x.astype(np.float32)
+    over = np.abs(y.astype(np.float64)) > np.abs(x)
+    return np.where(over, np.nextafter(y, np.float32(0)), y)
+
+
+def _mm_tf32_rz(a, b, acc):
+    """acc + a (M, K) . b (K, N) as 3xTF32 mma.sync m16n8k8 steps: per k-step
+    of 8, lo_a . hi_b, hi_a . lo_b, hi_a . hi_b, each one mma whose exact sum
+    with the accumulator is rounded toward zero to float32."""
+    (ah, al), (bh, bl) = _tf32_split(a), _tf32_split(b)
+    for k0 in range(0, a.shape[1], 8):
+        for x, y in ((al, bh), (ah, bl), (ah, bh)):
+            part = x[:, k0:k0 + 8].astype(np.float64) @ y[k0:k0 + 8].astype(np.float64)
+            acc = _rz32(acc.astype(np.float64) + part)
+    return acc
+
+
+def _fwd_tf32_tiles(q, k, v, per_tile, tile=64):
+    """(o, lse) of one causal head through the kernel's float32 steps over
+    tiles of ``tile`` keys: ``per_tile`` sums each tile's P.V apart and adds
+    it as o * alpha + pv (one float32 rounding), else P.V goes on into one
+    running accumulator after o *= alpha."""
+    sq, d = q.shape
+    scale = np.float32(1.0 / np.sqrt(d))
+    m = np.full((sq, 1), -1e30, np.float32)
+    l = np.zeros((sq, 1), np.float32)
+    o = np.zeros((sq, d), np.float32)
+    rows = np.arange(sq)[:, None]
+    for k0 in range(0, k.shape[0], tile):
+        s = _mm_tf32_rz(q, k[k0:k0 + tile].T, np.zeros((sq, tile), np.float32))
+        vis = rows + (k.shape[0] - sq) >= k0 + np.arange(tile)[None, :]
+        s = np.where(vis, s * scale, np.float32(-1e30)).astype(np.float32)
+        m_new = np.maximum(m, s.max(-1, keepdims=True))
+        alpha = np.exp(m - m_new).astype(np.float32)
+        p = np.where(vis, np.exp(s - m_new), 0).astype(np.float32)
+        l = (l * alpha + p.sum(-1, keepdims=True, dtype=np.float32)).astype(np.float32)
+        m = m_new
+        if per_tile:
+            pv = _mm_tf32_rz(p, v[k0:k0 + tile], np.zeros((sq, d), np.float32))
+            o = (o.astype(np.float64) * alpha + pv).astype(np.float32)
+        else:
+            o = _mm_tf32_rz(p, v[k0:k0 + tile], (o * alpha).astype(np.float32))
+    l_safe = np.maximum(l, np.float32(1e-30))
+    return (o / l_safe).astype(np.float32), (m + np.log(l_safe)).astype(np.float32)[:, 0]
+
+
+def test_fwd_3xtf32_tiles_hold_the_float32_forward_gate():
+    """At a causal Sk 2048 head (chip_smoke.py's causal_tiled_2048) the
+    forward's 3xTF32 tiles, with each tile's P.V summed apart, stay within
+    2e-5 (FLASH_TOL's float32 forward gate) of a float64 computation in o
+    and lse, relative to max |reference|.  One running accumulator in the
+    tensor core lands at least 3x farther off in o."""
+    q, k, v, _ = _inputs(1, 1, 2048, 2048, 64, seed=2048)
+    q, k, v = q[0, 0], k[0, 0], v[0, 0]
+    q64, k64, v64 = (x.astype(np.float64) for x in (q, k, v))
+    s = q64 @ k64.T / 8.0
+    s = np.where(np.tril(np.ones((2048, 2048), bool)), s, -np.inf)
+    mx = s.max(-1, keepdims=True)
+    e = np.exp(s - mx)
+    want_o = (e @ v64) / e.sum(-1, keepdims=True)
+    want_lse = mx[:, 0] + np.log(e.sum(-1))
+    o_t, lse_t = _fwd_tf32_tiles(q, k, v, per_tile=True)
+    o_r, lse_r = _fwd_tf32_tiles(q, k, v, per_tile=False)
+    err_tile, err_run = _rel(o_t, want_o), _rel(o_r, want_o)
+    assert err_tile <= 2e-5, err_tile
+    assert _rel(lse_t, want_lse) <= 2e-5
+    assert err_run >= 3 * err_tile, (err_run, err_tile)

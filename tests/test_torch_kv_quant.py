@@ -270,6 +270,43 @@ def test_split_plain_matches_unsplit_and_pallas_kernel(monkeypatch, kv_dtype, G,
                                atol=1e-2, rtol=2.0 ** -7)
 
 
+# lane 0 at position 0, lane 1 on the first key of its second split, lane
+# 2 with its last page partly visible; the decode path's segments for BS 8
+# and 16 at D 64
+@pytest.mark.parametrize("BS, MB", [(8, 20), (16, 10)])
+@pytest.mark.parametrize("kv_dtype", KV_QUANT)
+def test_decode_split_plain_matches_unsplit_and_pallas_kernel(monkeypatch, kv_dtype, BS, MB):
+    """The decode path's arithmetic at G 1 over int8 and float8 pools (the
+    segments of ``decode_plan``'s pages, merged) against the unsplit plain
+    version and the Pallas kernel with ``quantized=True``."""
+    monkeypatch.setattr(jpa, "INTERPRET", True)
+    B, H, D = 3, 2, 64
+    dtype = torch.int8 if kv_dtype == "int8" else torch.float8_e4m3fn
+    splits, pages = tpa.decode_plan(1, D, BS, MB, dtype)
+    assert splits >= 2 and tpa.route(1, D, BS, MB, dtype) == "decode"
+    pos = [0, pages * BS, MB * BS - BS // 2]
+    q, pk, pv, sk, sv, pos, bt = _quant_case(BS + MB, kv_dtype, B, 1, H, D, BS, MB, pos)
+    jdt = jnp.int8 if kv_dtype == "int8" else jnp.float8_e4m3fn
+    want = np.asarray(jpa.paged_decode_attention(
+        jnp.asarray(q), jnp.asarray(_bits(pk)).view(jdt), jnp.asarray(_bits(pv)).view(jdt),
+        jnp.asarray(pos), jnp.asarray(bt),
+        scale_k=jnp.asarray(sk.numpy()), scale_v=jnp.asarray(sv.numpy()),
+    ))
+    args = (torch.from_numpy(q), pk, pv, torch.from_numpy(pos), torch.from_numpy(bt), None,
+            sk, sv)
+    got = tpa.paged_attention_split_plain(*args, pages_per_split=pages)
+    assert got.dtype == torch.float32 and got.shape == (B, 1, H, D)
+    np.testing.assert_allclose(got.numpy(), tpa.paged_attention_plain(*args).numpy(),
+                               atol=1e-6, rtol=0)
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-5, rtol=0)
+    bf = (args[0].bfloat16(),) + args[1:]
+    got_bf = tpa.paged_attention_split_plain(*bf, pages_per_split=pages)
+    assert got_bf.dtype == torch.bfloat16
+    np.testing.assert_allclose(got_bf.float().numpy(),
+                               tpa.paged_attention_plain(*bf).float().numpy(),
+                               atol=1e-2, rtol=2.0 ** -7)
+
+
 def test_split_plan_takes_quantized_row_groups_only():
     """Which calls the kernel's row-group path takes, and its segments:
     every pool format (quantized, float32 and bfloat16 alike) at G >= 2,

@@ -148,17 +148,83 @@ def test_cpu_tensors_take_plain_version_and_never_count():
 
 
 def test_cpu_calls_leave_the_route_counts_alone():
-    """On CPU tensors a call on either route's shapes (G 1: the single
-    pass; G 8 at D 64, BS 16: the row-group path) takes the plain version
-    and counts nothing, by pool or by route."""
+    """On CPU tensors a call on any route's shapes (G 1 at D 64: the decode
+    path; G 8 at D 64, BS 16: the row-group path; G 1 at D 32: the single
+    pass) takes the plain version and counts nothing, by pool or by route."""
     before = (tpa.LAUNCHES, dict(tpa.LAUNCHES_BY_POOL), dict(tpa.LAUNCHES_BY_ROUTE))
-    assert set(tpa.LAUNCHES_BY_ROUTE) == {"single", "split"}
-    for G in (1, 8):
-        q, pk, pv, pos, bt = map(torch.from_numpy, _case(G, 2, G, 2, 64, 16, 3))
-        assert (tpa.split_plan(G, 64, 16, 3, pk.dtype) is None) == (G == 1)
+    assert set(tpa.LAUNCHES_BY_ROUTE) == {"single", "split", "decode"}
+    for G, D, path in ((1, 64, "decode"), (8, 64, "split"), (1, 32, "single")):
+        q, pk, pv, pos, bt = map(torch.from_numpy, _case(G, 2, G, 2, D, 16, 3))
+        assert (tpa.split_plan(G, D, 16, 3, pk.dtype) is None) == (G == 1)
+        assert tpa.route(G, D, 16, 3, pk.dtype) == path
         out = tpa.paged_attention(q, pk, pv, pos, bt)
         torch.testing.assert_close(out, tpa.paged_attention_plain(q, pk, pv, pos, bt))
     assert (tpa.LAUNCHES, tpa.LAUNCHES_BY_POOL, tpa.LAUNCHES_BY_ROUTE) == before
+
+
+@pytest.mark.parametrize("pool", ["float32", "bfloat16", "int8", "float8_e4m3fn"])
+def test_route_gives_one_row_the_decode_path(monkeypatch, pool):
+    """One row per lane (decode) takes the decode path at D 64 and 128 over
+    every pool format and any BS, in splits of 64 keys' worth of whole
+    pages (csrc kDecodeKeys; one page at least); more rows or another head
+    dim take another path, and ``DECODE_PATH`` off sends G 1 back to the
+    single pass (or, with ``SPLIT_MIN_ROWS`` 1, to the row-group path)."""
+    dtype = getattr(torch, pool)
+    for D in (64, 128):
+        for BS, MB, pages in ((16, 64, 4), (8, 10, 8), (48, 5, 1), (128, 3, 1), (4, 33, 16)):
+            assert tpa.route(1, D, BS, MB, dtype) == "decode"
+            assert tpa.decode_plan(1, D, BS, MB, dtype) == (-(-MB // pages), pages)
+            assert tpa.split_plan(1, D, BS, MB, dtype) is None
+    assert tpa.route(4, 64, 16, 64, dtype) == "split"
+    assert tpa.decode_plan(4, 64, 16, 64, dtype) is None
+    assert tpa.route(4, 128, 16, 64, dtype) == "single"
+    for D in (32, 96, 256):
+        assert tpa.decode_plan(1, D, 16, 64, dtype) is None
+        assert tpa.route(1, D, 16, 64, dtype) == "single"
+    monkeypatch.setattr(tpa, "DECODE_PATH", False)
+    assert tpa.route(1, 64, 16, 64, dtype) == "single"
+    monkeypatch.setattr(tpa, "SPLIT_MIN_ROWS", 1)
+    assert tpa.route(1, 64, 16, 64, dtype) == "split"
+
+
+# lane 0 at position 0 (only its first split holds anything it sees), lane
+# 1 on the first key of its second split, lane 2 with its last page partly
+# visible; the decode path's segments for BS 8 and 16 at D 64
+@pytest.mark.parametrize("BS, MB", [(8, 20), (16, 10)])
+@pytest.mark.parametrize("pool", ["float32", "bfloat16"])
+def test_decode_split_plain_matches_unsplit_and_pallas_kernel_over_float_pools(
+        monkeypatch, pool, BS, MB):
+    """The decode path's arithmetic at G 1 (softmax over the segments of
+    ``decode_plan``'s pages, then merged), which the kernel runs over
+    float32 and bfloat16 pools, against the unsplit plain version and the
+    Pallas kernel."""
+    monkeypatch.setattr(jpa, "INTERPRET", True)
+    B, H, D = 3, 2, 64
+    dtype = getattr(torch, pool)
+    splits, pages = tpa.decode_plan(1, D, BS, MB, dtype)
+    assert splits >= 2
+    q, pk, pv, pos, bt = _case(BS + MB, B, 1, H, D, BS, MB,
+                               pos=[0, pages * BS, MB * BS - BS // 2])
+    pk, pv = torch.from_numpy(pk).to(dtype), torch.from_numpy(pv).to(dtype)
+    jdt = jnp.bfloat16 if pool == "bfloat16" else jnp.float32
+    want = np.asarray(jpa.paged_decode_attention(
+        jnp.asarray(q), jnp.asarray(pk.float().numpy()).astype(jdt),
+        jnp.asarray(pv.float().numpy()).astype(jdt), jnp.asarray(pos), jnp.asarray(bt),
+    ))
+    args = (torch.from_numpy(q), pk, pv, torch.from_numpy(pos), torch.from_numpy(bt))
+    got = tpa.paged_attention_split_plain(*args, pages_per_split=pages)
+    assert got.dtype == torch.float32 and got.shape == (B, 1, H, D)
+    assert np.all(np.isfinite(got.numpy()))
+    np.testing.assert_allclose(got.numpy(), tpa.paged_attention_plain(*args).numpy(),
+                               atol=1e-6, rtol=0)
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-5, rtol=0)
+    if pool == "bfloat16":  # a bfloat16 q over a bfloat16 pool
+        bf = (args[0].bfloat16(),) + args[1:]
+        got_bf = tpa.paged_attention_split_plain(*bf, pages_per_split=pages)
+        assert got_bf.dtype == torch.bfloat16
+        np.testing.assert_allclose(got_bf.float().numpy(),
+                                   tpa.paged_attention_plain(*bf).float().numpy(),
+                                   atol=1e-2, rtol=2.0 ** -7)
 
 
 def test_non_cpu_non_cuda_tensors_raise():

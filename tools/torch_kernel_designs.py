@@ -9,8 +9,9 @@ Prints, one JSON line each:
 
 * ``ptxas``: registers, shared memory and spills of every kernel of both
   sources (``nvcc -Xptxas -v``);
-* ``flash_fwd_check``: the bfloat16 forward's first design (``first``)
-  and its redesign (``wgmma``) against the plain version on the cases
+* ``flash_fwd_check``: the forward's first design (``first``) and its
+  redesign (bfloat16 ``wgmma``, float32 ``tf32``: 3xTF32 on the tensor
+  cores) in each dtype against the plain version on the cases
   ``chip_smoke.py`` runs (relative error of O and lse, rows that see no
   key exactly 0);
 * ``flash_fwd_time``: each design's median ms over 30 launches with the
@@ -35,11 +36,12 @@ Prints, one JSON line each:
 * ``paged_check`` / ``paged_time``: the paged kernel's row-group path
   over float32, bfloat16, int8 and float8 pools (q float32 and bfloat16,
   a float32 q only over float32 pools; ragged G, a lane at position 0,
-  rows across a split, G 80 in two row groups of a block each) against
-  the plain version, then the single-pass path and the row-group path
-  at the serve shapes (8 lanes, 12 heads, D 64,
-  BS 16, 64 pages: prefill G 32 at 480, verify G 4 at 512, decode G 1 at
-  512; q float32), beside SDPA on pre-gathered (dequantized) K/V.
+  rows across a split, G 80 in two row groups of a block each) and its
+  decode path (G 1, ``decode``) against the plain version, then the
+  single-pass path, the row-group path (forced at G 1) and, at G 1, the
+  decode path at the serve shapes (8 lanes, 12 heads, D 64, BS 16, 64
+  pages: prefill G 32 at 480, verify G 4 at 512, decode G 1 at 512; q
+  float32), beside SDPA on pre-gathered (dequantized) K/V.
 
 The card's name and power limit come last.  Tolerances are
 ``chip_smoke.py``'s.
@@ -66,7 +68,9 @@ from flexflow_tpu_torch.ops.cuda import paged_attention as pa  # noqa: E402
 from flexflow_tpu_torch.serve.kvcache import kv_qmax, pool_bits, quantize_kv  # noqa: E402
 
 DEV = "cuda:0"
-FLASH_TOL = 2e-2  # bfloat16, relative to max |plain|
+FLASH_TOL = {torch.bfloat16: 2e-2, torch.float32: 2e-5}  # forward, relative to max |plain|
+# the redesign of each forward dtype, beside its first design
+FWD_DESIGNS = {torch.bfloat16: ["first", "wgmma"], torch.float32: ["first", "tf32"]}
 BWD_TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}  # backward, as chip_smoke.py's
 # the redesign of each backward dtype, beside its first design
 BWD_DESIGNS = {torch.bfloat16: ["first", "wgmma"], torch.float32: ["first", "tf32"]}
@@ -160,13 +164,15 @@ def flash_inputs(Bq, Hq, sq, sk, d, seed=0, dtype=torch.bfloat16):
                  for s in ((Bq, Hq, sq, d), (Bq, Hq, sk, d), (Bq, Hq, sk, d)))
 
 
-def flash_checks(designs):
+def flash_checks(dtype):
+    tol = FLASH_TOL[dtype]
     for name, Bq, Hq, sq, sk, d, causal, rate, seed in FLASH_CASES:
-        q, k, v = flash_inputs(Bq, Hq, sq, sk, d)
+        q, k, v = flash_inputs(Bq, Hq, sq, sk, d, dtype=dtype)
         p_out, p_lse = fa.flash_attention_fwd_plain(q, k, v, causal, rate, seed)
         live = p_lse > -1e29
-        for design in designs:
-            line = {"phase": "flash_fwd_check", "case": name, "design": design}
+        for design in FWD_DESIGNS[dtype]:
+            line = {"phase": "flash_fwd_check", "case": name, "design": design,
+                    "dtype": str(dtype).replace("torch.", "")}
             try:
                 out, lse = fa.flash_fwd(q, k, v, causal, rate, seed,
                                         first_design=design == "first")
@@ -177,24 +183,24 @@ def flash_checks(designs):
                     dead = out.reshape(Bq * Hq, sq, d)[~live]
                     line["masked_rows_zero"] = bool((dead == 0).all())
                     line["masked_lse_max"] = float(lse[~live].max())
-                line["ok"] = (line["finite"] and line["rel_o"] <= FLASH_TOL
-                              and line["rel_lse"] <= FLASH_TOL
+                line["ok"] = (line["finite"] and line["rel_o"] <= tol
+                              and line["rel_lse"] <= tol
                               and line.get("masked_rows_zero", True))
             except RuntimeError as e:
                 line.update(ok=False, error=str(e)[:300])
             emit(line)
 
 
-def flash_times(designs):
+def flash_times(dtype):
     """Each design and SDPA in turns, three rounds of 10 flushed calls (the
     median of the 30 is reported) and a back-to-back mean per round."""
     for d in (64, 128):
-        q, k, v = flash_inputs(16, 12, 512, 512, d)
+        q, k, v = flash_inputs(16, 12, 512, 512, d, dtype=dtype)
 
         def design_fn(design):
             return lambda: fa.flash_fwd(q, k, v, first_design=design == "first")
 
-        fns = {design: design_fn(design) for design in designs}
+        fns = {design: design_fn(design) for design in FWD_DESIGNS[dtype]}
         fns["sdpa"] = lambda: F.scaled_dot_product_attention(q, k, v)
         flushed = {name: [] for name in fns}
         b2b = {name: [] for name in fns}
@@ -205,7 +211,8 @@ def flash_times(designs):
                     b2b[name].append(back_to_back_ms(fn))
                 except RuntimeError as e:
                     flushed[name] = str(e)[:200]
-        line = {"phase": "flash_fwd_time", "B": 16, "H": 12, "S": 512, "D": d}
+        line = {"phase": "flash_fwd_time", "dtype": str(dtype).replace("torch.", ""), "B": 16,
+                "H": 12, "S": 512, "D": d}
         for name in fns:
             ok = isinstance(flushed[name], list)
             line[name] = float(np.median(flushed[name])) if ok else flushed[name]
@@ -344,8 +351,8 @@ def paged_checks():
         for q_dtype in (torch.float32, torch.bfloat16):
             if kv_dtype == "float32" and q_dtype == torch.bfloat16:
                 continue  # the kernel takes no bfloat16 q over a float32 pool
-            for G, label in ((4, "verify"), (20, "ragged"), (32, "prefill"), (20, "position_0"),
-                             (20, "straddle"), (80, "two_row_groups")):
+            for G, label in ((1, "decode"), (4, "verify"), (20, "ragged"), (32, "prefill"),
+                             (20, "position_0"), (20, "straddle"), (80, "two_row_groups")):
                 pos = np.minimum(BS * rng.integers(0, MB, size=B) + BS // 2 + np.arange(B),
                                  MB * BS - G)
                 if label == "position_0":
@@ -357,8 +364,7 @@ def paged_checks():
                 name = str(q_dtype).replace("torch.", "")
                 atol, rtol = PAGED_TOL[name]
                 line = {"phase": "paged_check", "case": label, "kv_dtype": kv_dtype,
-                        "q_dtype": name, "G": G, "plan": pa.split_plan(G, D, BS, MB,
-                                                                       args[1].dtype)}
+                        "q_dtype": name, "G": G, "route": pa.route(G, D, BS, MB, args[1].dtype)}
                 try:
                     got = pa.paged_attention(*args)
                     torch.cuda.synchronize()
@@ -391,16 +397,18 @@ def paged_times():
             mask = (k_pos[None, None, :] <= rows[:, :, None])[:, None]
             qh = q.permute(0, 2, 1, 3).contiguous()
             line = {"phase": "paged_time", "kv_dtype": kv_dtype, "G": G, "context": ctx}
-            keep = pa.SPLIT_MIN_ROWS
+            keep = pa.DECODE_PATH, pa.SPLIT_MIN_ROWS
             try:
-                pa.SPLIT_MIN_ROWS = 10 ** 9
+                if G == 1:
+                    line["decode"] = time_ms(lambda: pa.paged_attention(*args))
+                pa.DECODE_PATH, pa.SPLIT_MIN_ROWS = False, 10 ** 9
                 line["single_pass"] = time_ms(lambda: pa.paged_attention(*args))
-                pa.SPLIT_MIN_ROWS = 2
+                pa.SPLIT_MIN_ROWS = 1
                 line["split"] = time_ms(lambda: pa.paged_attention(*args))
             except RuntimeError as e:
                 line["error"] = str(e)[:200]
             finally:
-                pa.SPLIT_MIN_ROWS = keep
+                pa.DECODE_PATH, pa.SPLIT_MIN_ROWS = keep
             line["sdpa"] = time_ms(lambda: F.scaled_dot_product_attention(
                 qh, keys, vals, attn_mask=mask, scale=scale))
             emit(line)
@@ -418,12 +426,11 @@ def main() -> int:
         paged_checks()
         paged_times()
     if "--paged-only" not in sys.argv:
-        designs = ["first", "wgmma"]
-        flash_checks(designs)
         for dtype in (torch.bfloat16, torch.float32):
+            flash_checks(dtype)
             flash_bwd_checks(dtype)
-        flash_times(designs)
         for dtype in (torch.bfloat16, torch.float32):
+            flash_times(dtype)
             flash_bwd_times(dtype)
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True, text=True)

@@ -25,11 +25,13 @@ change, parent, one process each.  Prints, one JSON line each:
   ``chip_smoke.py``'s profile traffic (8 requests): wall and device-busy
   time, the idle share, the paged-attention kernel's device time by route
   (``paged_us_by_route``: the single pass; the row-group path's split and
-  combine kernels) and the kernels with the most device time;
+  combine kernels; the decode path's kernel, where the tree has one) and
+  the kernels with the most device time;
 * ``profile_spec``: the ``spec`` arm traced on ``chip_smoke.py``'s profile
   traffic (8 requests): wall and device-busy time, the idle share, the
   device time of the paged-attention kernels (``paged_us``) and of the
-  row-group path among them (``split_us``, zero where the tree has none),
+  row-group and decode paths among them (``split_us``, ``decode_us``,
+  zero where the tree has none),
   wall and busy time per speculative macro step, and the host operations
   with the most self time on the host.
 
@@ -177,8 +179,10 @@ def main() -> int:
     paged_us = sum(k["total_us"] for k in kernels if "paged_" in k["name"])
     split_us = sum(k["total_us"] for k in kernels
                    if "paged_split" in k["name"] or "paged_combine" in k["name"])
+    decode_us = sum(k["total_us"] for k in kernels if "paged_decode" in k["name"])
     emit({"phase": "profile_spec", "tree": label, **prof, "paged_us": paged_us,
           "split_us": split_us, "split_share_of_busy": split_us / prof["device_busy_us"],
+          "decode_us": decode_us,
           "macros": macros, "prefill_dispatches": r.prefill_dispatches,
           "wall_us_per_macro": prof["wall_us"] / macros,
           "busy_us_per_macro": prof["device_busy_us"] / macros,

@@ -79,6 +79,16 @@ Phases, each printing one JSON line; any failure exits non-zero:
    the first token whose relative top-2 margin in the plain run is under
    1e-4.  ``profile_quant`` traces the profile run with int8 pools.
    ``serve_w8`` serves with int8 weights and int8 pools.
+   ``kv_spill_roundtrip`` (:func:`spill_roundtrip`): pools at GPT-2-small
+   model shape in all four formats; a 500-position slot of seeded bits
+   spilled and restored into BS 8 and BS 32 pools bit for bit, through
+   ``ffkv/1`` bytes and back, and a wrong-format restore refused; spill
+   and restore ms and MB/s.  ``serve_preempt`` (float32 and int8 pools)
+   and ``serve_drain`` (:func:`resilience_phases`): interactive arrivals
+   preempt decoding batch requests, which spill and resume; a SIGTERM
+   from the fault plan drains the run to an ``ffdrain/1`` file that a
+   fresh engine resumes; streams held against undisturbed reference runs
+   by the speculative arm's margin rule, launches by route gated.
 4. ``flash_attention``: the three flash kernels (forward, dQ, dK/dV)
    against their plain versions at the training slice's shape (B 16,
    H 12, S 512, D 64, float32 and bfloat16), causal with Sq 128 / Sk 256,
@@ -833,6 +843,12 @@ def main() -> int:
     del e_w
     torch.cuda.empty_cache()
 
+    # --- 3r. kv_spill_roundtrip / serve_preempt / serve_drain ----------------
+    spill_roundtrip(dev, card)
+    resilience_phases(dev, model, engine_kw, card, zero_counts, routes, margin_recorder,
+                      margins_by_request)
+    torch.cuda.empty_cache()
+
     # --- 4. flash_attention: kernels against plain, then timing --------------
     def qkv(shape_q, shape_k, dtype, seed):
         g = torch.Generator(device="cpu").manual_seed(seed)
@@ -1097,6 +1113,363 @@ def main() -> int:
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
     return 0
+
+
+def spill_roundtrip(dev, card) -> None:
+    """Phase ``kv_spill_roundtrip``: pools at GPT-2-small model shape (12
+    layers, 12 heads, D 64), BS 16, in every pool format; a 500-position
+    slot's pages (and scale rows) filled with seeded bits, spilled, and
+    restored into a BS 8 and a BS 32 pool, where the gathered pages and
+    scales must equal the spilled bits; the payload through ``ffkv/1``
+    bytes and back must equal itself; a quantized payload into a float32
+    pool (a full-precision one into an int8 pool) must be refused with
+    the reservation released.  Spill and restore are host-timed copies
+    (each ends in a synchronizing copy or ``synchronize``)."""
+    import numpy as np
+    import torch
+
+    from flexflow_tpu_torch.models.transformer import GPT2_SMALL
+    from flexflow_tpu_torch.serve.kvcache import PagedKVCache, pool_bits
+    from flexflow_tpu_torch.serve.wire import decode_handoff, encode_handoff, kv_payload_nbytes
+
+    n_layers, heads = GPT2_SMALL["num_layers"], GPT2_SMALL["heads"]
+    head_dim = GPT2_SMALL["hidden"] // heads
+
+    def pool(kv_dtype, bs):
+        return PagedKVCache(n_layers, heads, head_dim, slots=1, block_size=bs, max_seq_len=SEQ,
+                            kv_dtype=kv_dtype, device=dev)
+
+    def bits(t) -> bytes:  # a tensor's or an array's bytes
+        if isinstance(t, torch.Tensor):
+            return pool_bits(t).contiguous().view(torch.uint8).cpu().numpy().tobytes()
+        return np.ascontiguousarray(t).tobytes()
+
+    def dense(kv, n):  # the slot's pages and scales as bytes, layers stacked
+        out = [bits(t) for t in kv.gather_dense(0, n)]
+        return out + ([bits(t) for t in kv.gather_scales(0, n)] if kv.quantized else [])
+
+    def payload_bits(p, names):
+        return [np.stack([p["layers"][f"layer{i}"][k] for i in range(n_layers)]).tobytes()
+                for k in names]
+
+    length = 500
+    for fmt in ("fp32", "bf16", "int8", "fp8"):
+        src = pool(fmt, BS)
+        src.reserve(0, length)
+        row = torch.as_tensor(src.tables[0, :src.blocks_for(length)], dtype=torch.long,
+                              device=dev)
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        for t in (src.cache_k, src.cache_v, src.scale_k, src.scale_v):
+            if t is not None:
+                u8 = pool_bits(t).view(torch.uint8)
+                shape = (u8.shape[0], len(row)) + tuple(u8.shape[2:])
+                u8[:, row] = torch.randint(0, 256, shape, generator=gen, device=dev,
+                                           dtype=torch.uint8)
+        before = dense(src, length)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        payload = src.spill(0, length)  # ends in its one device-to-host copy
+        spill_ms = (time.perf_counter() - t0) * 1e3
+        names = ("k", "v", "sk", "sv") if src.quantized else ("k", "v")
+        exact = payload_bits(payload, names) == before
+        mb = kv_payload_nbytes(payload) / 1e6
+        restore = {}
+        for bs in (8, 32):
+            dst = pool(fmt, bs)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            dst.restore(0, payload, length)
+            torch.cuda.synchronize()
+            restore[f"bs{bs}"] = {"ms": (time.perf_counter() - t0) * 1e3,
+                                  "bit_exact": dense(dst, length) == before,
+                                  "copies": dst.restore_copies, "bytes": dst.restore_bytes}
+            del dst
+        req = {"id": 0, "prompt": np.arange(length, dtype=np.int32), "max_new_tokens": 8,
+               "tokens": [1], "kv_spill": payload}
+        t0 = time.perf_counter()
+        frame = encode_handoff(req)
+        encode_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        back = decode_handoff(frame)
+        decode_ms = (time.perf_counter() - t0) * 1e3
+        frame_ok = (payload_bits(back["kv_spill"], names) == before
+                    and back["kv_spill"]["length"] == length
+                    and back["kv_spill"].get("kv_dtype") == payload.get("kv_dtype"))
+        other = pool("fp32" if src.quantized else "int8", BS)
+        try:
+            other.restore(0, payload, length)
+        except ValueError as e:
+            refused = str(e)
+        else:
+            refused = None
+        released = other.owned(0) == () and other.restore_copies == 0
+        ok = (exact and frame_ok and refused is not None and released
+              and src.spill_copies == 1 and src.owned(0) == ()
+              and all(r["bit_exact"] and r["copies"] == 1 for r in restore.values()))
+        emit({"phase": "kv_spill_roundtrip", "kv_dtype": fmt,
+              "pool_dtype": str(src.dtype).replace("torch.", ""), "layers": n_layers,
+              "heads": heads, "head_dim": head_dim, "block_size": BS, "length": length,
+              "payload_mb": mb, "spill_ms": spill_ms, "spill_mb_s": mb / spill_ms * 1e3,
+              "spill_copies": src.spill_copies, "spill_bit_exact": exact,
+              "restore": {k: {**r, "mb_s": mb / r["ms"] * 1e3} for k, r in restore.items()},
+              "frame_mb": len(frame) / 1e6, "encode_ms": encode_ms, "decode_ms": decode_ms,
+              "frame_round_trip_equal": frame_ok, "refused": refused,
+              "refusal_released_reservation": released, "ok": ok, "card": card})
+        if not ok:
+            raise SystemExit(f"kv_spill_roundtrip {fmt}: spill/restore not bit-exact, the frame "
+                             f"changed it, or the wrong-format restore was not refused")
+        del src, other, payload, back
+        torch.cuda.empty_cache()
+
+
+def resilience_phases(dev, model, engine_kw, card, zero_counts, routes, margin_recorder,
+                      margins_by_request) -> None:
+    """Phases ``serve_preempt`` (float32 and int8 pools) and ``serve_drain``
+    (float32 pools) on the serve phase's GPT-2-small model and engine.
+
+    ``serve_preempt``: 8 batch requests (tenant ``batch``, prompts
+    128-512, 48-64 new tokens) are submitted and admitted, and windows
+    run through ``_window`` until at least 4 of them decode (at least 4
+    windows); then 4 interactive requests (tenant ``vip``, prompts
+    32-128, 16-32 new tokens) are submitted and ``run()`` serves
+    everything.  Each interactive arrival preempts one decoding batch
+    request, whose K/V spills and later restores.  Gates: 4 preemptions,
+    each victim once, 4 spills and 4 restores; every request finishes
+    with its full budget; one host sync per window; the paged kernel's
+    launches (counted from the first window to the end of the run) only
+    on the decode path (12 x decode steps) and the row-group path (12 x
+    prefill dispatches); the allocator's invariants; and every stream
+    equal to its reference (the 8 batch requests served alone on a fresh
+    engine; each interactive request served alone) up to the first
+    token whose relative top-2 margin in the reference is under
+    ``SPEC_MARGIN``.
+
+    ``serve_drain``: the same 8 batch requests through ``run(requests)``
+    with the fault plan ``serve:sigterm@N`` (N = the preemption warm-up's
+    window count, so that requests are decoding) and a ``drain_path``:
+    the run must drain on the engine's own SIGTERM handler; the file must
+    load (digest checked); a fresh engine's ``resume_from_drain`` and
+    ``run`` finish every request; the streams before and after, together,
+    must equal the undrained reference's by the same margin rule; a
+    truncated copy of the file must be refused."""
+    import os
+    import tempfile
+
+    import torch
+
+    from flexflow_tpu_torch.model import CheckpointError
+    from flexflow_tpu_torch.models.transformer import GPT2_SMALL
+    from flexflow_tpu_torch.ops.cuda import paged_attention as pa
+    from flexflow_tpu_torch.runtime.faults import FaultPlan, set_fault_plan
+    from flexflow_tpu_torch.serve import (
+        RequestState,
+        ServeEngine,
+        TrafficSpec,
+        load_drain,
+        save_drain,
+        synthetic_requests,
+    )
+
+    layers = GPT2_SMALL["num_layers"]
+    batch_spec = TrafficSpec(n_requests=8, seed=SEED, prompt_len=(128, 512), max_new=(48, 64),
+                             vocab=VOCAB)
+    vip_spec = TrafficSpec(n_requests=4, seed=SEED + 1, prompt_len=(32, 128), max_new=(16, 32),
+                           vocab=VOCAB)
+
+    def batch_reqs():
+        rs = synthetic_requests(batch_spec)
+        for r in rs:
+            r.tenant = "batch"
+        return rs
+
+    def vip_reqs():
+        rs = synthetic_requests(vip_spec)
+        for j, r in enumerate(rs):
+            r.id, r.tenant, r.tier = 100 + j, "vip", "interactive"
+        return rs
+
+    def first_divergence(got, ref, margins):
+        """Requests whose stream leaves its reference: the first token that
+        differs and the first reference token (up to there) whose relative
+        top-2 margin is under SPEC_MARGIN (None: no such token, a failure)."""
+        out = []
+        for r in got:
+            want = ref[r.id]
+            k = next((i for i, (x, y) in enumerate(zip(r.tokens, want)) if x != y), None)
+            if k is None:
+                continue
+            m = margins.get(r.id, {})
+            out.append({"request": r.id, "token": k, "got": r.tokens[k], "want": want[k],
+                        "first_small_margin_token": min(
+                            (i for i in range(k + 1) if m.get(i, 1.0) < SPEC_MARGIN),
+                            default=None)})
+        return out
+
+    def full(rs):
+        return all(len(r.tokens) == r.max_new_tokens and all(0 <= t < VOCAB for t in r.tokens)
+                   for r in rs)
+
+    def tier_ttft(rep):
+        return {t: {k: d[k] for k in ("finished", "preemptions", "ttft_p50_ms", "ttft_p99_ms",
+                                      "tpot_p99_ms")} for t, d in rep.per_tier.items()}
+
+    drain_ref = None
+    for kv_dtype in ("fp32", "int8"):
+        # the references: the batch requests alone, then each interactive one alone
+        ref_eng = ServeEngine(model, kv_dtype=kv_dtype, **engine_kw)
+        calls = margin_recorder(ref_eng)
+        ref_batch = batch_reqs()
+        ref_rep = ref_eng.run(ref_batch)
+        ref_vip, vip_ttft = [], []
+        for r in vip_reqs():
+            rep_1 = ref_eng.run([r])
+            ref_vip.append(r)
+            vip_ttft.append(rep_1.ttft_p50_ms)
+        margins = margins_by_request(calls)
+        ref = {r.id: list(r.tokens) for r in ref_batch + ref_vip}
+        if not (full(ref_batch) and full(ref_vip)):
+            raise SystemExit(f"serve_preempt {kv_dtype}: a reference request fell short")
+        del ref_eng
+        torch.cuda.empty_cache()
+
+        eng = ServeEngine(model, kv_dtype=kv_dtype, **engine_kw)
+        zero_counts()  # every kernel count to 0 just before the path
+        torch.cuda.synchronize()
+        batch = []
+        for r in batch_reqs():
+            b = eng.submit(r.prompt, r.max_new_tokens, req_id=r.id, tenant=r.tenant)
+            b.arrival_abs_s = eng._now()  # TTFT from submission, as the reference's
+            batch.append(b)
+        eng.sched.admit()
+        warm = 0
+        while warm < 4 or sum(b.state is RequestState.DECODE for b in batch) < 4:
+            eng._window()
+            warm += 1
+        warm_decode, warm_prefill, warm_syncs = (eng.decode_steps, eng.prefill_dispatches,
+                                                 eng.host_syncs)
+        decoding = [b.id for b in batch if b.state is RequestState.DECODE]
+        finished_early = [b.id for b in batch if b.state is RequestState.FINISHED]
+        vip = [eng.submit(r.prompt, r.max_new_tokens, req_id=r.id, tenant=r.tenant,
+                          tier=r.tier) for r in vip_reqs()]
+        rep = eng.run()
+        launches, by_route = pa.LAUNCHES, dict(pa.LAUNCHES_BY_ROUTE)
+        by_pool = dict(pa.LAUNCHES_BY_POOL)
+        decode_steps = warm_decode + rep.decode_steps
+        dispatches = warm_prefill + rep.prefill_dispatches
+        expect_route = routes(layers * decode_steps, layers * dispatches)
+        diverged = first_divergence(batch + vip, ref, margins)
+        eng.kv.check_invariants()
+        victims = sorted(b.id for b in batch if b.preemptions)
+        checks = {
+            "preemptions_4": rep.preemptions == 4 and len(victims) == 4
+            and all(b.preemptions <= 1 for b in batch),
+            "victims_were_decoding": set(victims) <= set(decoding) and not finished_early,
+            "spills_and_restores_4": rep.kv_spill_copies == rep.kv_restore_copies == 4,
+            "full_budgets": full(batch) and full(vip) and rep.requests_finished == 12,
+            "host_syncs_eq_windows": rep.host_syncs == rep.windows and warm_syncs == warm,
+            "launches_by_route": by_route == expect_route and launches > 0
+            and by_pool == {str(eng.kv.dtype).replace("torch.", ""): launches},
+            "no_shared_write_hazard": eng.kv.shared_write_hazards() == [],
+            "streams_by_margin_rule": all(d["first_small_margin_token"] is not None
+                                          for d in diverged),
+        }
+        emit({"phase": "serve_preempt", "model": "GPT2_SMALL", "layers": layers,
+              "kv_dtype": kv_dtype, "batch_traffic": batch_spec.identity,
+              "interactive_traffic": vip_spec.identity, "warm_windows": warm,
+              "decoding_at_arrival": decoding, "victims": victims,
+              "preemptions": rep.preemptions, "kv_spill_copies": rep.kv_spill_copies,
+              "kv_spill_bytes": rep.kv_spill_bytes, "kv_restore_copies": rep.kv_restore_copies,
+              "kv_restore_bytes": rep.kv_restore_bytes, "tok_s": rep.tok_s, "wall_s": rep.wall_s,
+              "windows": rep.windows, "host_syncs": rep.host_syncs,
+              "per_tier": tier_ttft(rep),
+              "reference": {"batch_tok_s": ref_rep.tok_s, "batch_wall_s": ref_rep.wall_s,
+                            "batch_per_tier": tier_ttft(ref_rep),
+                            "interactive_solo_ttft_ms": vip_ttft},
+              "paged_attention_launches": launches, "launches_by_route": by_route,
+              "expected_by_route": expect_route, "launches_by_pool": by_pool,
+              "streams_identical": len(batch) + len(vip) - len(diverged),
+              "diverged": diverged, "margin_threshold_rel": SPEC_MARGIN,
+              "checks": checks, "ok": all(checks.values()), "card": card})
+        if not all(checks.values()):
+            raise SystemExit(f"serve_preempt {kv_dtype}: failed "
+                             f"{[k for k, v in checks.items() if not v]}")
+        if kv_dtype == "fp32":
+            drain_ref = (ref, margins, warm, sorted(r.id for r in ref_batch))
+        del eng
+        torch.cuda.empty_cache()
+
+    # --- serve_drain: SIGTERM at a window boundary, file, resume -------------
+    ref, margins, warm, batch_ids = drain_ref
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "drain.npz")
+        eng = ServeEngine(model, drain_path=path, **engine_kw)
+        eng2 = ServeEngine(model, **engine_kw)  # resumes; built (and warmed) before the count
+        reqs = batch_reqs()
+        zero_counts()
+        torch.cuda.synchronize()
+        set_fault_plan(FaultPlan.parse(f"serve:sigterm@{warm}", seed=SEED))
+        try:
+            rep = eng.run(reqs)
+        finally:
+            set_fault_plan(None)
+        first = (rep.decode_steps, rep.prefill_dispatches)
+        drained_ok = rep.drained and eng.sigterm_installed and os.path.exists(path)
+        if not drained_ok:
+            raise SystemExit(f"serve_drain: the run did not drain on SIGTERM (drained "
+                             f"{rep.drained}, handler installed {eng.sigterm_installed})")
+        file_mb = os.path.getsize(path) / 1e6
+        t0 = time.perf_counter()
+        payload = load_drain(path)  # digest checked
+        load_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        save_drain(os.path.join(tmp, "again.npz"), eng.drain_payload)
+        save_ms = (time.perf_counter() - t0) * 1e3
+        spilled = [d["id"] for d in payload["requests"] if d["kv_spill"] is not None]
+        blob = open(path, "rb").read()
+        torn = os.path.join(tmp, "torn.npz")
+        with open(torn, "wb") as f:
+            f.write(blob[: len(blob) // 2])
+        try:
+            load_drain(torn)
+        except CheckpointError as e:
+            torn_refused = str(e)[:160]
+        else:
+            torn_refused = None
+        del eng
+        restored = eng2.resume_from_drain(payload)
+        rep2 = eng2.run()
+        launches, by_route = pa.LAUNCHES, dict(pa.LAUNCHES_BY_ROUTE)
+        expect_route = routes(layers * (first[0] + rep2.decode_steps),
+                              layers * (first[1] + rep2.prefill_dispatches))
+        done = [r for r in reqs if r.state is RequestState.FINISHED] + restored
+        diverged = first_divergence(done, ref, margins)
+        eng2.kv.check_invariants()
+        checks = {
+            "drained": drained_ok,
+            "requests_spilled": len(spilled) > 0 and rep.kv_spill_copies == len(spilled),
+            "restored": rep2.kv_restore_copies == len(spilled),
+            "every_request_finishes": sorted(r.id for r in done) == batch_ids and full(done),
+            "host_syncs_eq_windows": rep.host_syncs == rep.windows
+            and rep2.host_syncs == rep2.windows,
+            "launches_by_route": by_route == expect_route and launches > 0,
+            "torn_file_refused": torn_refused is not None,
+            "streams_by_margin_rule": all(d["first_small_margin_token"] is not None
+                                          for d in diverged),
+        }
+        emit({"phase": "serve_drain", "model": "GPT2_SMALL", "kv_dtype": "fp32",
+              "traffic": batch_spec.identity, "fault_plan": f"serve:sigterm@{warm}",
+              "windows_before_drain": rep.windows, "finished_before_drain": rep.requests_finished,
+              "requests_in_file": len(payload["requests"]), "requests_spilled": len(spilled),
+              "kv_spill_bytes": rep.kv_spill_bytes, "file_mb": file_mb, "save_ms": save_ms,
+              "load_ms": load_ms, "resumed_windows": rep2.windows, "resumed_tok_s": rep2.tok_s,
+              "kv_restore_copies": rep2.kv_restore_copies,
+              "paged_attention_launches": launches, "launches_by_route": by_route,
+              "expected_by_route": expect_route, "torn_file_refused": torn_refused,
+              "streams_identical": len(done) - len(diverged), "diverged": diverged,
+              "checks": checks, "ok": all(checks.values()), "card": card})
+        if not all(checks.values()):
+            raise SystemExit(f"serve_drain: failed {[k for k, v in checks.items() if not v]}")
+        del eng2
 
 
 def device_profile(fn, top=10, host_top=0) -> dict:

@@ -11,10 +11,22 @@ names), ``compile`` on one device, and ``get_weights`` / ``set_weights``
 the per-layer ``{layer: {weight: np.ndarray}}`` dictionary that the JAX
 ``FFModel.get_weights()`` returns, and checks every name and shape
 before it writes anything.
+
+The checkpoint writer (:func:`_write_checkpoint_atomic`, with
+:func:`_checkpoint_digest` and :class:`CheckpointError`) is the JAX
+package's: one ``.npz`` written atomically, its manifest and content
+digest inside as ``meta/manifest``.  The digest hashes each array's key,
+dtype string, shape and bytes the same way, so a file written by either
+package verifies in the other.  The serve drain (``ffdrain/1``) and the
+``ffkv/1`` frames use it; ``ffckpt/2`` train checkpoints are not ported
+yet (ROADMAP.md).
 """
 
 from __future__ import annotations
 
+import hashlib
+import json
+import os
 from typing import Any, Dict, List, Mapping, Optional, Sequence
 
 import numpy as np
@@ -31,7 +43,65 @@ from flexflow_tpu_torch.optimizer import Optimizer, SGDOptimizer
 from flexflow_tpu_torch.runtime.executor import Executor
 from flexflow_tpu_torch.tensor import Layer, Tensor
 
-__all__ = ["FFModel"]
+__all__ = ["FFModel", "CheckpointError"]
+
+
+class CheckpointError(RuntimeError):
+    """A checkpoint file that must not be loaded: a torn or truncated
+    write, an unreadable manifest, or a content-digest mismatch.  The
+    message names what failed."""
+
+
+def _checkpoint_digest(flat: Dict[str, np.ndarray]) -> str:
+    """Content digest over the payload arrays: keys in sorted order, each
+    with its dtype string and shape, so a reinterpreted buffer fails too."""
+    h = hashlib.sha256()
+    for key in sorted(flat):
+        arr = np.ascontiguousarray(flat[key])
+        h.update(key.encode())
+        h.update(str(arr.dtype).encode())
+        h.update(str(arr.shape).encode())
+        h.update(arr.tobytes())
+    return f"sha256:{h.hexdigest()}"
+
+
+def _write_checkpoint_atomic(path: str, flat: Dict[str, np.ndarray],
+                             manifest: Dict[str, Any]) -> str:
+    """Write ``flat`` plus ``manifest`` (with the content digest added) as
+    one ``.npz``: a temp file in the target directory, flush, fsync,
+    ``os.replace``, then an fsync of the directory, so a reader sees the
+    previous complete file or the new complete one, never a torn one.
+    ``.npz`` is appended when missing.  Returns the path written."""
+    if not path.endswith(".npz"):
+        path += ".npz"
+    manifest = dict(manifest)
+    manifest["digest"] = _checkpoint_digest(flat)
+    payload = dict(flat)
+    payload["meta/manifest"] = np.frombuffer(json.dumps(manifest).encode(), dtype=np.uint8)
+    tmp = f"{path}.tmp.{os.getpid()}"
+    try:
+        with open(tmp, "wb") as f:
+            np.savez(f, **payload)
+            f.flush()
+            os.fsync(f.fileno())
+        os.replace(tmp, path)
+    finally:
+        if os.path.exists(tmp):
+            try:
+                os.unlink(tmp)
+            except OSError:
+                pass
+    # fsync the directory so the rename itself survives a power cut (not
+    # every filesystem opens a directory for reading)
+    try:
+        dfd = os.open(os.path.dirname(os.path.abspath(path)), os.O_RDONLY)
+        try:
+            os.fsync(dfd)
+        finally:
+            os.close(dfd)
+    except OSError:
+        pass
+    return path
 
 
 class FFModel:

@@ -20,4 +20,12 @@ SCHEMAS: Dict[str, Tuple[str, str]] = {
         "flexflow_tpu_torch/obs/metrics.py",
         "per-window serve metrics JSONL (--metrics-out)",
     ),
+    "ffkv/1": (
+        "flexflow_tpu_torch/serve/wire.py",
+        "one request's KV handoff frame: .npz bytes, content digest",
+    ),
+    "ffdrain/1": (
+        "flexflow_tpu_torch/serve/engine.py",
+        "serve drain file: in-flight KV spills and queues (--serve-drain-file)",
+    ),
 }

@@ -1,6 +1,13 @@
-"""Serving: paged KV cache, continuous batching, the serve engine."""
+"""Serving: paged KV cache, continuous batching, the serve engine,
+preemption by spill and restore, drain and resume, the ``ffkv/1`` codec."""
 
-from flexflow_tpu_torch.serve.engine import ServeEngine, ServeReport
+from flexflow_tpu_torch.serve.engine import (
+    DRAIN_SCHEMA,
+    ServeEngine,
+    ServeReport,
+    load_drain,
+    save_drain,
+)
 from flexflow_tpu_torch.serve.kvcache import KVCacheOOM, PagedKVCache
 from flexflow_tpu_torch.serve.scheduler import (
     ContinuousBatchingScheduler,
@@ -12,6 +19,13 @@ from flexflow_tpu_torch.serve.traffic import (
     multi_tenant_requests,
     synthetic_requests,
 )
+from flexflow_tpu_torch.serve.wire import (
+    KV_SCHEMA,
+    HandoffError,
+    decode_handoff,
+    encode_handoff,
+    kv_payload_nbytes,
+)
 
 __all__ = [
     "PagedKVCache",
@@ -21,6 +35,14 @@ __all__ = [
     "ContinuousBatchingScheduler",
     "ServeEngine",
     "ServeReport",
+    "DRAIN_SCHEMA",
+    "save_drain",
+    "load_drain",
+    "KV_SCHEMA",
+    "HandoffError",
+    "encode_handoff",
+    "decode_handoff",
+    "kv_payload_nbytes",
     "TrafficSpec",
     "synthetic_requests",
     "multi_tenant_requests",

@@ -17,12 +17,26 @@ Defaults are smoke-sized; pass the model flags for a real width::
 and speculative arms take the JAX driver's flags: ``--serve-kv-dtype
 fp32|bf16|int8|fp8``, ``--serve-weight-dtype fp32|int8``,
 ``--serve-spec-k K`` and ``--serve-spec-draft-layers N``.
+
+Multi-tenant traffic and preemption: ``--tenants N --shared-prefix P
+--interactive-frac F`` give per-tenant system prompts and put the first
+``ceil(N x F)`` tenants on the interactive tier, whose requests preempt
+batch requests when every slot is held; ``--deadline-ms D`` stamps
+every request with a queue-wait deadline; ``--serve-prefix-sharing
+off`` turns prefix sharing off.  Resilience: ``--serve-drain-file F``
+is where a SIGTERM drain writes its ``ffdrain/1`` file, ``--resume-drain
+F`` queues a drain file's requests before the run; ``--serve-watchdog-s
+S`` counts windows slower than S seconds; ``--serve-shed-windows N``
+sheds the queued batch tier after N consecutive windows over
+``--serve-slo-ms`` per token; ``--fault-plan SPEC|FILE`` installs a
+serve-site fault plan (seeded by ``--seed``) for the run.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import os
 import sys
 from typing import List, Optional
 
@@ -52,6 +66,12 @@ def _parser() -> argparse.ArgumentParser:
     t.add_argument("--prompt-len", type=_int_pair, default=(4, 12), help="LO:HI")
     t.add_argument("--max-new", type=_int_pair, default=(4, 24), help="LO:HI")
     t.add_argument("--traffic-seed", type=int, default=0)
+    t.add_argument("--tenants", type=int, default=1)
+    t.add_argument("--shared-prefix", type=int, default=0, help="system-prompt tokens a tenant")
+    t.add_argument("--interactive-frac", type=float, default=0.0,
+                   help="share of tenants on the interactive tier")
+    t.add_argument("--deadline-ms", type=float, default=0.0,
+                   help="queue-wait deadline of every request; 0 = none")
     e = p.add_argument_group("engine")
     e.add_argument("--serve-slots", type=int, default=4)
     e.add_argument("--serve-block-size", type=int, default=16)
@@ -64,6 +84,16 @@ def _parser() -> argparse.ArgumentParser:
                    help="draft tokens per speculative step; 0 = off")
     e.add_argument("--serve-spec-draft-layers", type=int, default=0,
                    help="draft depth; 0 = half the layers")
+    e.add_argument("--serve-prefix-sharing", default="on", type=lambda v: v.lower(),
+                   choices=("on", "off", "1", "0", "true", "false", "yes", "no"))
+    e.add_argument("--serve-watchdog-s", type=float, default=0.0,
+                   help="count windows slower than this; 0 = off")
+    e.add_argument("--serve-shed-windows", type=int, default=0,
+                   help="shed the batch queue after N windows over the SLO; 0 = off")
+    e.add_argument("--serve-slo-ms", type=float, default=50.0, help="per-token SLO")
+    e.add_argument("--serve-drain-file", default=None, help="where a SIGTERM drain writes")
+    e.add_argument("--resume-drain", default=None, help="a drain file to resume before the run")
+    e.add_argument("--fault-plan", default=None, help="serve-site fault spec or JSON file")
     e.add_argument("--metrics-out", default=None)
     e.add_argument("--device", default="cuda")
     return p
@@ -74,7 +104,8 @@ def main(argv: Optional[List[str]] = None) -> int:
 
     from flexflow_tpu_torch.models.transformer import GPTDecoder
     from flexflow_tpu_torch.ops.cuda import paged_attention as pa
-    from flexflow_tpu_torch.serve import ServeEngine, TrafficSpec, synthetic_requests
+    from flexflow_tpu_torch.runtime.faults import FaultPlan, get_fault_plan, set_fault_plan
+    from flexflow_tpu_torch.serve import ServeEngine, TrafficSpec, load_drain, synthetic_requests
 
     model = GPTDecoder(
         seq=args.seq, hidden=args.hidden, heads=args.heads, ff_dim=args.ff_dim,
@@ -86,17 +117,34 @@ def main(argv: Optional[List[str]] = None) -> int:
         metrics_out=args.metrics_out, attn=args.serve_attn, device=args.device,
         kv_dtype=args.serve_kv_dtype, weight_dtype=args.serve_weight_dtype,
         spec_k=args.serve_spec_k, spec_draft_layers=args.serve_spec_draft_layers,
+        prefix_sharing=args.serve_prefix_sharing in ("on", "1", "true", "yes"),
+        watchdog_s=args.serve_watchdog_s, shed_after_windows=args.serve_shed_windows,
+        slo_ms=args.serve_slo_ms, drain_path=args.serve_drain_file,
     )
+    resumed = engine.resume_from_drain(load_drain(args.resume_drain)) if args.resume_drain else []
     spec = TrafficSpec(
         n_requests=args.requests, seed=args.traffic_seed, rate_rps=args.rate,
         prompt_len=args.prompt_len, max_new=args.max_new, vocab=args.vocab,
+        tenants=args.tenants, shared_prefix=args.shared_prefix,
+        interactive_frac=args.interactive_frac,
     )
     reqs = synthetic_requests(spec)
     for r in reqs:
         # clamp budgets to the model's position range so every request serves
         r.max_new_tokens = max(1, min(r.max_new_tokens, args.seq - r.prompt_len))
+        if args.deadline_ms > 0:
+            r.deadline_ms = args.deadline_ms
+    plan = None
+    if args.fault_plan:
+        plan = (FaultPlan.from_file(args.fault_plan) if os.path.exists(args.fault_plan)
+                else FaultPlan.parse(args.fault_plan, seed=args.seed))
     launches0 = pa.LAUNCHES
-    report = engine.run(reqs)
+    old_plan = get_fault_plan()
+    set_fault_plan(plan if plan is not None else old_plan)
+    try:
+        report = engine.run(reqs)
+    finally:
+        set_fault_plan(old_plan)
     out = {
         "metric": "serve_demo",
         "serve_traffic": spec.identity,
@@ -111,6 +159,8 @@ def main(argv: Optional[List[str]] = None) -> int:
         "kv_dtype": engine.kv.kv_dtype,
         "weight_dtype": engine.weight_dtype,
         "kv_bytes_per_token": engine.kv.bytes_per_token,
+        "resumed_requests": len(resumed),
+        "fault_plan": plan.identity if plan is not None else None,
         **report.to_dict(),
     }
     print(json.dumps(out), flush=True)

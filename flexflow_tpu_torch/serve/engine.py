@@ -40,15 +40,34 @@ through :func:`~flexflow_tpu_torch.ops.cuda.paged_attention.paged_attention`
 and the gather on the CPU.  Float32 matmuls stay float32: the engine
 turns TF32 off for CUDA matmuls.
 
-Not ported yet (ROADMAP.md): temperature sampling, preemption, drain
-and resume, spans, SLO, watchdog and shedding, and the fault plan.
+**Preemption, drain and resume.**  An interactive request that finds
+every slot held preempts a batch request (the scheduler spills its K/V
+to host between windows; the request later restores it bit for bit and
+resumes mid-stream).  SIGTERM during :meth:`ServeEngine.run` asks for a
+drain: at the next window boundary every in-flight request spills (or,
+mid-prefill, drops its partial K/V) and the run ends; the payload is
+written atomically as one ``ffdrain/1`` file (:func:`save_drain`) when
+``drain_path`` is set, and a fresh engine picks it up with
+:func:`load_drain` and :meth:`ServeEngine.resume_from_drain`.  Spill
+and restore copies are counted apart from the window's host sync
+(``kv_spill_copies``, ``kv_restore_copies`` and their bytes in the
+report): ``host_syncs`` still counts one per window.  A fault plan
+(:mod:`flexflow_tpu_torch.runtime.faults`) is consulted at the top of
+every window; ``watchdog_s`` counts windows slower than the budget and
+``shed_after_windows`` sheds the queued batch tier after that many
+consecutive windows over ``slo_ms`` per token.
+
+Not ported yet (ROADMAP.md): temperature sampling, and the ``obs``
+spans and tracer instants of the JAX loop (queue A item 6).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
+import signal
 import time
+import zipfile
 from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
@@ -56,6 +75,7 @@ import torch
 import torch.nn.functional as F
 
 from flexflow_tpu_torch.device import DEFAULT_DEVICE, resolve_device
+from flexflow_tpu_torch.model import CheckpointError, _write_checkpoint_atomic
 from flexflow_tpu_torch.models.gpt_decode import layer_norm, make_cast, quantize_weights_int8
 from flexflow_tpu_torch.models.transformer import GPTDecoder
 from flexflow_tpu_torch.obs.metrics import MetricsStream, step_record
@@ -64,14 +84,51 @@ from flexflow_tpu_torch.ops.cuda.paged_attention import (
     paged_attention_plain,
     resolve_serve_attn,
 )
+from flexflow_tpu_torch.runtime.faults import get_fault_plan
 from flexflow_tpu_torch.serve.kvcache import PagedKVCache, pool_bits, quantize_kv
 from flexflow_tpu_torch.serve.scheduler import (
     ContinuousBatchingScheduler,
     Request,
     RequestState,
 )
+from flexflow_tpu_torch.serve.wire import (
+    HandoffError,
+    flatten_requests,
+    unflatten_requests,
+    verify_flat,
+)
 
-__all__ = ["ServeEngine", "ServeReport"]
+__all__ = ["ServeEngine", "ServeReport", "DRAIN_SCHEMA", "load_drain", "save_drain"]
+
+# drain payload schema id: in-flight KV spills and the queues, written
+# atomically, with the ffkv/1 flattening and digest (serve/wire.py)
+DRAIN_SCHEMA = "ffdrain/1"
+
+
+def save_drain(path: str, payload: Dict[str, Any]) -> str:
+    """Write a :meth:`ServeEngine.drain` payload as one atomic,
+    digest-checked ``.npz`` (the checkpoint writer).  Returns the path."""
+    flat, metas = flatten_requests(payload["requests"])
+    return _write_checkpoint_atomic(path, flat, {"schema": DRAIN_SCHEMA, "requests": metas})
+
+
+def load_drain(path: str) -> Dict[str, Any]:
+    """Read a :func:`save_drain` file back into the payload that
+    :meth:`ServeEngine.resume_from_drain` takes.  A torn file or a digest
+    mismatch raises :class:`~flexflow_tpu_torch.model.CheckpointError`."""
+    try:
+        with np.load(path) as z:
+            flat = {k: np.asarray(z[k]) for k in z.files}
+    except (zipfile.BadZipFile, ValueError, OSError, EOFError) as e:
+        raise CheckpointError(
+            f"drain file {path!r} is torn or truncated ({type(e).__name__}: {e}); "
+            f"refusing to load") from e
+    try:
+        manifest = verify_flat(flat, f"drain file {path!r}")
+    except HandoffError as e:
+        raise CheckpointError(str(e)) from e
+    return {"schema": manifest["schema"],
+            "requests": unflatten_requests(flat, manifest["requests"])}
 
 
 def _pct(vals: Sequence[Optional[float]], q: float) -> Optional[float]:
@@ -115,6 +172,17 @@ class ServeReport:
     spec_accept_rate: Optional[float] = None
     spec_drafted: int = 0
     spec_accepted: int = 0
+    # preemption, drain and resilience
+    preemptions: int = 0  # batch requests spilled or dropped for the interactive tier
+    drained: bool = False  # the run ended in a drain, not with an empty queue
+    shed: int = 0  # queued batch requests shed under SLO pressure
+    watchdog_fires: int = 0  # windows slower than watchdog_s
+    # spill (device to host) and restore (host to device) copies, one per
+    # spill or restore, apart from the window's host sync
+    kv_spill_copies: int = 0
+    kv_spill_bytes: int = 0
+    kv_restore_copies: int = 0
+    kv_restore_bytes: int = 0
 
     def to_dict(self) -> Dict[str, Any]:
         d = dataclasses.asdict(self)
@@ -133,7 +201,10 @@ class ServeEngine:
     ``weight_dtype`` "int8" the weight-only int8 arm, ``spec_k`` > 0
     greedy speculative decoding with a draft of the first
     ``spec_draft_layers`` layers (default, or when out of range: half
-    the depth, at least one layer).
+    the depth, at least one layer).  ``watchdog_s`` > 0 counts windows
+    slower than that; ``shed_after_windows`` > 0 sheds the queued batch
+    tier after that many consecutive windows over ``slo_ms`` per flushed
+    token; ``drain_path`` is where a SIGTERM drain writes its file.
     """
 
     def __init__(
@@ -153,6 +224,10 @@ class ServeEngine:
         weight_dtype: str = "fp32",
         spec_k: int = 0,
         spec_draft_layers: int = 0,
+        watchdog_s: float = 0.0,
+        shed_after_windows: int = 0,
+        slo_ms: float = 50.0,
+        drain_path: Optional[str] = None,
         dtype: torch.dtype = torch.float32,
         device: Union[str, torch.device] = DEFAULT_DEVICE,
     ) -> None:
@@ -241,6 +316,44 @@ class ServeEngine:
         self._occ_sum = 0.0
         self.spec_drafted = 0
         self.spec_accepted = 0
+        self._t0: Optional[float] = None
+        # resilience: SIGTERM only sets a flag, and the loop drains at the
+        # next window boundary
+        self.watchdog_s = float(watchdog_s)  # 0 = off
+        self.shed_after_windows = int(shed_after_windows)  # 0 = off
+        self.slo_ms = float(slo_ms)
+        self.drain_path = drain_path
+        self._drain_requested = False
+        self.drained = False
+        self.drain_payload: Optional[Dict[str, Any]] = None
+        self.sigterm_installed = False  # whether the last run() held the handler
+        self.watchdog_fires = 0
+        self._slo_breach_windows = 0  # consecutive windows over the SLO
+        self.dcn_degraded = False  # set by a dcn_degrade fault
+
+    # --- submission ---------------------------------------------------------
+    def submit(
+        self,
+        prompt,
+        max_new_tokens: int,
+        *,
+        req_id: int = -1,
+        eos_id: Optional[int] = None,
+        arrival_s: float = 0.0,
+        tenant: str = "default",
+        tier: str = "batch",
+        deadline_ms: Optional[float] = None,
+        session: Optional[str] = None,
+    ) -> Request:
+        """Queue one request now; a budget past the position range or the
+        pool comes back REJECTED with a reason."""
+        req = Request(
+            prompt=prompt, max_new_tokens=max_new_tokens, id=req_id,
+            eos_id=eos_id if eos_id is not None else self.eos_id,
+            arrival_s=arrival_s, tenant=tenant, tier=tier,
+            deadline_ms=deadline_ms, session=session,
+        )
+        return self.sched.submit(req, now=self._now())
 
     # --- host -> device staging -------------------------------------------
     def _to_device(self, key: str, *arrays: np.ndarray) -> List[torch.Tensor]:
@@ -425,46 +538,162 @@ class ServeEngine:
     # --- the serve loop ----------------------------------------------------
     def run(self, requests: Optional[Sequence[Request]] = None) -> ServeReport:
         """Serve ``requests`` (plus anything already submitted) until the
-        queue drains.  Each request is submitted once its open-loop
-        ``arrival_s`` offset from the run's start has passed."""
+        queue drains, or until a drain is asked for (SIGTERM, or
+        :meth:`request_drain`).  Each request is submitted once its
+        open-loop ``arrival_s`` offset from the run's start has passed."""
         pending = sorted(requests or (), key=lambda r: (r.arrival_s, r.id))
-        t0 = self._now()
+        t0 = self._t0 = self._now()
         syncs0 = self.host_syncs
         self.windows = self.decode_steps = self.prefill_chunks = 0
         self.prefill_dispatches = 0
         self.peak_active = 0
         self._occ_sum = 0.0
         self.spec_drafted = self.spec_accepted = 0
+        self.watchdog_fires = 0
+        self._slo_breach_windows = 0
         fin0 = len(self.sched.finished)
         rej0 = len(self.sched.rejected)
         exp0 = self.sched.expired
+        pre0 = self.sched.preemptions
+        shed0 = self.sched.shed
+        kv = self.kv
+        copies0 = (kv.spill_copies, kv.spill_bytes, kv.restore_copies, kv.restore_bytes)
         for r in self.sched.queue:  # queued before run(): arrive at t0
             if r.arrival_abs_s is None:
                 r.arrival_abs_s = t0
                 r.t_submit = 0.0
+                r.t_enqueued = 0.0
+        # SIGTERM asks for a drain at the next window boundary; the old
+        # handler comes back in finally.  Off the main thread the handler
+        # cannot be installed: request_drain() still works there
+        self.drained = False
+        self._drain_requested = False
+        self.sigterm_installed = False
+        old_handler = None
+        try:
+            old_handler = signal.signal(signal.SIGTERM, lambda signum, frame: self.request_drain())
+            self.sigterm_installed = True
+        except ValueError:
+            pass
         n_sub = 0
-        while True:
-            now = self._now() - t0
-            while n_sub < len(pending) and pending[n_sub].arrival_s <= now:
-                r = pending[n_sub]
-                self.sched.submit(r, now=now)
-                r.arrival_abs_s = t0 + r.arrival_s
-                n_sub += 1
-            self.sched.admit(now=now)
-            if self.sched.idle:
-                if n_sub >= len(pending):
+        try:
+            while True:
+                if self._drain_requested:
+                    self.drain_payload = self.drain()
+                    if self.drain_path:
+                        save_drain(self.drain_path, self.drain_payload)
+                    self.drained = True
                     break
-                dt_next = pending[n_sub].arrival_s - (self._now() - t0)
-                if dt_next > 0:
-                    time.sleep(min(dt_next, 0.05))
-                continue
-            self._window()
+                now = self._now() - t0
+                while n_sub < len(pending) and pending[n_sub].arrival_s <= now:
+                    r = pending[n_sub]
+                    self.sched.submit(r, now=now)
+                    r.arrival_abs_s = t0 + r.arrival_s
+                    n_sub += 1
+                self.sched.admit(now=now)
+                if self.sched.idle:
+                    if n_sub >= len(pending):
+                        break
+                    dt_next = pending[n_sub].arrival_s - (self._now() - t0)
+                    if dt_next > 0:
+                        time.sleep(min(dt_next, 0.05))
+                    continue
+                self._window()
+        finally:
+            if self.sigterm_installed:
+                signal.signal(signal.SIGTERM,
+                              signal.SIG_DFL if old_handler is None else old_handler)
+        copies = tuple(b - a for a, b in zip(copies0, (
+            kv.spill_copies, kv.spill_bytes, kv.restore_copies, kv.restore_bytes)))
         return self._report(
             self._now() - t0, self.host_syncs - syncs0, self.sched.finished[fin0:],
             len(self.sched.rejected) - rej0, self.sched.expired - exp0,
+            self.sched.preemptions - pre0, self.sched.shed - shed0, copies,
         )
 
+    def request_drain(self) -> None:
+        """Ask the run loop to drain at the next window boundary (what the
+        SIGTERM handler calls)."""
+        self._drain_requested = True
+
+    # --- drain / resume -------------------------------------------------------
+    def drain(self) -> Dict[str, Any]:
+        """Spill every in-flight slot to host and unload the queues into one
+        payload that a fresh engine resumes from.  DECODE slots spill their
+        live K/V bit for bit (the preemption convention); mid-PREFILL slots
+        drop their partial K/V and prefill again on resume.  Greedy decode
+        and an exact restore make the streams before and after the drain
+        together equal an uninterrupted run's."""
+        sched = self.sched
+        reqs: List[Request] = []
+        for slot in sorted(sched.active):
+            req = sched.active.pop(slot)
+            if req.state is RequestState.DECODE and req.done_tokens > 0:
+                live = req.prompt_len + max(0, req.done_tokens - 1)
+                req.kv_spill = self.kv.spill(slot, live)
+                req.state = RequestState.PREEMPTED
+            else:
+                self.kv.release(slot)
+                req.kv_spill = None
+                req.prefill_pos = 0
+                req.state = RequestState.QUEUED
+            sched.free_slots.append(slot)
+            req.slot = -1
+            reqs.append(req)
+        reqs.extend(sched.queue)  # admission order, interactive first
+        for q in sched._queues.values():
+            q.clear()
+        return {
+            "schema": DRAIN_SCHEMA,
+            "requests": [
+                {
+                    "id": int(r.id),
+                    "prompt": np.asarray(r.prompt, np.int32),
+                    "max_new_tokens": int(r.max_new_tokens),
+                    "eos_id": r.eos_id,
+                    "tenant": r.tenant,
+                    "tier": r.tier,
+                    "deadline_ms": r.deadline_ms,
+                    "session": r.session,
+                    "preemptions": int(r.preemptions),
+                    "tokens": list(r.tokens),
+                    "kv_spill": r.kv_spill,
+                }
+                for r in reqs
+            ],
+        }
+
+    def resume_from_drain(self, payload: Dict[str, Any]) -> List[Request]:
+        """Load a :meth:`drain` payload into this engine's queues; call
+        before :meth:`run`.  Spilled requests re-enter as PREEMPTED (the
+        scheduler restores their K/V and they rejoin decode mid-stream),
+        the rest as QUEUED."""
+        schema = payload.get("schema")
+        if schema != DRAIN_SCHEMA:
+            raise ValueError(f"drain payload schema {schema!r} != {DRAIN_SCHEMA!r}")
+        out: List[Request] = []
+        for d in payload["requests"]:
+            req = Request(
+                prompt=d["prompt"], max_new_tokens=int(d["max_new_tokens"]), id=int(d["id"]),
+                eos_id=d.get("eos_id"), tenant=d.get("tenant", "default"),
+                tier=d.get("tier", "batch"), deadline_ms=d.get("deadline_ms"),
+                session=d.get("session"),
+            )
+            req.tokens = [int(t) for t in d.get("tokens", ())]
+            req.preemptions = int(d.get("preemptions", 0))
+            req.kv_spill = d.get("kv_spill")
+            req.state = RequestState.PREEMPTED if req.kv_spill is not None else RequestState.QUEUED
+            # no submit(): admissibility held before the drain, and the
+            # shared-prefix arithmetic would run against a cold index
+            self.sched._queues[req.tier].append(req)
+            self.sched._next_id = max(self.sched._next_id, req.id) + 1
+            out.append(req)
+        return out
+
     def _window(self) -> None:
+        plan = get_fault_plan()  # one call and a None check with no plan
+        if plan is not None:
+            plan.on_serve_window(self)
         t_win = self._now()
         B, MB = self.slots, self.kv.max_blocks_per_seq
         fin_before = len(self.sched.finished)
@@ -601,6 +830,21 @@ class ServeEngine:
 
         self.windows += 1
         self._occ_sum += self.sched.occupancy
+        win_wall = self._now() - t_win
+        if self.watchdog_s and win_wall > self.watchdog_s:
+            self.watchdog_fires += 1
+        # after shed_after_windows consecutive windows over the per-token
+        # SLO, reject the queued batch tier with the reason
+        if self.shed_after_windows and flushed:
+            per_tok_ms = win_wall / flushed * 1e3
+            self._slo_breach_windows = self._slo_breach_windows + 1 if per_tok_ms > self.slo_ms else 0
+            if self._slo_breach_windows >= self.shed_after_windows:
+                self.sched.shed_batch_queue(
+                    self._now() - (self._t0 or 0.0),
+                    f"sustained SLO pressure: per-token {per_tok_ms:.1f} ms > "
+                    f"{self.slo_ms:.1f} ms SLO for {self._slo_breach_windows} consecutive windows",
+                )
+                self._slo_breach_windows = 0
         if self.metrics.enabled:
             fin = [
                 {"id": r.id, "tokens": r.done_tokens, "reason": r.finish_reason,
@@ -617,6 +861,7 @@ class ServeEngine:
                 "finished": fin,
                 "rejected_total": len(self.sched.rejected),
                 "expired_total": self.sched.expired,
+                "shed_total": self.sched.shed,
                 "prefix_hit_rate": self.kv.prefix_hit_rate,
                 "cached_blocks": self.kv.cached_blocks,
                 "preemptions_total": self.sched.preemptions,
@@ -649,16 +894,18 @@ class ServeEngine:
             self.sched.finish(req, self._now(), "length")
 
     # --- report -------------------------------------------------------------
-    def _report(self, wall: float, host_syncs: int, fin: List[Request],
-                rejected: int, expired: int) -> ServeReport:
+    def _report(self, wall: float, host_syncs: int, fin: List[Request], rejected: int,
+                expired: int, preemptions: int, shed: int,
+                copies: Tuple[int, int, int, int]) -> ServeReport:
         lat = [r.latency_ms() for r in fin]
         new_tokens = sum(r.done_tokens for r in fin)
         per_tier: Dict[str, Dict[str, Any]] = {}
         for tier in sorted({r.tier for r in fin}):
-            tl = [r.latency_ms() for r in fin if r.tier == tier]
+            rs = [r for r in fin if r.tier == tier]
+            tl = [r.latency_ms() for r in rs]
             per_tier[tier] = {
-                "finished": len(tl),
-                "preemptions": 0,
+                "finished": len(rs),
+                "preemptions": sum(r.preemptions for r in rs),
                 "ttft_p50_ms": _pct([d["ttft_ms"] for d in tl], 50),
                 "ttft_p99_ms": _pct([d["ttft_ms"] for d in tl], 99),
                 "tpot_p99_ms": _pct([d["tpot_ms"] for d in tl], 99),
@@ -687,7 +934,8 @@ class ServeEngine:
             per_request=[
                 {"id": r.id, "prompt_len": r.prompt_len, "tokens": list(r.tokens),
                  "reason": r.finish_reason, "tenant": r.tenant, "tier": r.tier,
-                 "shared_prefix_pos": r.shared_prefix_pos, **r.latency_ms()}
+                 "preemptions": r.preemptions, "shared_prefix_pos": r.shared_prefix_pos,
+                 **r.latency_ms()}
                 for r in fin
             ],
             prefix_hit_rate=self.kv.prefix_hit_rate,
@@ -703,6 +951,14 @@ class ServeEngine:
                               if self.spec_drafted else None),
             spec_drafted=self.spec_drafted,
             spec_accepted=self.spec_accepted,
+            preemptions=preemptions,
+            drained=self.drained,
+            shed=shed,
+            watchdog_fires=self.watchdog_fires,
+            kv_spill_copies=copies[0],
+            kv_spill_bytes=copies[1],
+            kv_restore_copies=copies[2],
+            kv_restore_bytes=copies[3],
         )
         self.metrics.close()
         return rep

@@ -22,14 +22,26 @@ Physical block 0 is the trash block: never allocated, it absorbs the
 writes of idle decode lanes and padded prefill rows (their table rows
 are all zero).
 
-Not ported yet (ROADMAP.md): ``spill``/``restore``.
+**Spill and restore** (preemption, drain, the ``ffkv/1`` handoff):
+:meth:`PagedKVCache.spill` moves a slot's live positions to host numpy
+arrays in ONE device-to-host copy and releases the reservation;
+:meth:`PagedKVCache.restore` re-reserves, re-attaches the prefix blocks
+still indexed and writes the private span back in ONE host-to-device
+copy.  The payload is the JAX package's: ``{"length", "layers":
+{"layer{i}": {"k", "v"[, "sk", "sv"]}}[, "kv_dtype"]}`` with dense
+``(H, length, D)`` arrays per layer (scales ``(length,)``), free of the
+pool's block geometry.  numpy holds neither bfloat16 nor float8, so
+those pages travel as their bits (:data:`PAYLOAD_DTYPES`): bfloat16 as
+``np.dtype("V2")`` (what ``np.savez`` writes for the JAX package's
+bfloat16 arrays) and float8 e4m3 as ``uint8`` (the JAX frames' fp8
+storage view).  The round trip is bit-exact.
 """
 
 from __future__ import annotations
 
 import hashlib
 from collections import OrderedDict, deque
-from typing import Dict, List, Optional, Tuple, Union
+from typing import Any, Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -37,8 +49,8 @@ import torch
 from flexflow_tpu_torch.device import DEFAULT_DEVICE, resolve_device
 
 __all__ = [
-    "PagedKVCache", "KVCacheOOM", "KV_DTYPES", "kv_pool_dtype", "kv_qmax",
-    "quantize_kv", "dequantize_kv", "pool_bits",
+    "PagedKVCache", "KVCacheOOM", "KV_DTYPES", "PAYLOAD_DTYPES", "kv_pool_dtype",
+    "kv_qmax", "quantize_kv", "dequantize_kv", "pool_bits",
 ]
 
 # the --serve-kv-dtype vocabulary; "fp32" means the engine's compute dtype
@@ -48,6 +60,16 @@ KV_DTYPES = ("fp32", "bf16", "int8", "fp8")
 # (-128 stays unused so the grid is symmetric); 448 is the largest
 # finite float8_e4m3fn value
 _QMAX = {"int8": 127.0, "fp8": 448.0}
+
+
+# the numpy dtype a spill payload holds each pool element dtype as: bfloat16
+# and float8 pages as their bits (numpy has neither type)
+PAYLOAD_DTYPES = {
+    torch.float32: np.dtype(np.float32),
+    torch.bfloat16: np.dtype("V2"),
+    torch.int8: np.dtype(np.int8),
+    torch.float8_e4m3fn: np.dtype(np.uint8),
+}
 
 
 def kv_qmax(kv_dtype: str) -> Optional[float]:
@@ -165,6 +187,11 @@ class PagedKVCache:
         self.prefix_lookups = 0
         self.evictions = 0
         self.cow_copies = 0
+        # spill/restore copies between host and device, and their bytes
+        self.spill_copies = 0
+        self.spill_bytes = 0
+        self.restore_copies = 0
+        self.restore_bytes = 0
         self.tables = np.zeros((slots, self.max_blocks_per_seq), np.int32)
         shape = (num_layers, self.num_blocks, heads, block_size, head_dim)
         self.cache_k = torch.zeros(shape, dtype=self.dtype, device=self.device)
@@ -239,6 +266,10 @@ class PagedKVCache:
         matches = set(self.prefix_matches(prompt))
         evictable = sum(1 for b in self._cached if b not in matches)
         return total - shared <= len(self._free) + evictable
+
+    def fits_ever(self, seq_len: int) -> bool:
+        """Could an EMPTY pool with no shared prefix serve this length?"""
+        return self.blocks_for(seq_len) <= self.allocatable_blocks and seq_len <= self.max_seq_len
 
     def fits_with_sharing(self, seq_len: int, prompt=None) -> bool:
         """Could this request ever be admitted given the prefix blocks
@@ -389,6 +420,161 @@ class PagedKVCache:
         self._protected[slot] = min(self._protected.get(slot, 0), logical_idx)
         return new
 
+    def shared_write_hazards(self) -> List[Tuple[int, int, int]]:
+        """Every block a slot may write (logical index at or past its
+        protected boundary) must be private and unindexed.  Returns the
+        ``(slot, logical_idx, block)`` rows that are not; empty is safe."""
+        out: List[Tuple[int, int, int]] = []
+        for slot, blocks in self._owned.items():
+            for i in range(self._protected.get(slot, 0), len(blocks)):
+                b = blocks[i]
+                if self._refcount.get(b, 0) > 1 or b in self._block_key:
+                    out.append((slot, i, b))
+        return out
+
+    # --- spill / restore (preemption, drain, handoff) ----------------------
+    def spill(self, slot: int, length: int) -> Dict[str, Any]:
+        """Move ``slot``'s first ``length`` positions to host as a payload
+        (module docstring) and release the reservation.  The pages (and a
+        quantized pool's scales) are gathered on the device into one
+        buffer that crosses to the host in ONE copy."""
+        length = int(length)
+        # scales first: every part of the one buffer then starts aligned
+        names = ("sk", "sv", "k", "v") if self.quantized else ("k", "v")
+        dense = self._slot_dense(slot, length, names)
+        parts = [(name, dense[name], np.dtype(np.float32) if name in ("sk", "sv")
+                  else PAYLOAD_DTYPES[self.dtype]) for name in names]
+        flat = torch.cat([t.contiguous().view(torch.uint8).reshape(-1) for _, t, _ in parts])
+        host = flat.cpu().numpy()
+        self.spill_copies += 1
+        self.spill_bytes += int(host.nbytes)
+        arrays, at = {}, 0
+        for name, t, np_dtype in parts:
+            nbytes = t.numel() * t.element_size()
+            arrays[name] = host[at:at + nbytes].view(np_dtype).reshape(t.shape)
+            at += nbytes
+        payload: Dict[str, Any] = {
+            "length": length,
+            "layers": {
+                f"layer{i}": {name: arrays[name][i] for name in arrays}
+                for i in range(self.num_layers)
+            },
+        }
+        if self.quantized:
+            payload["kv_dtype"] = self.kv_dtype
+        self.release(slot)
+        return payload
+
+    def restore(self, slot: int, payload: Dict[str, Any], seq_len: int, prompt=None) -> int:
+        """Re-reserve ``seq_len`` for ``slot`` (prefix blocks still in the
+        index re-attach: they hold the spilled positions' K/V bit for bit)
+        and write the payload's private span back into the fresh blocks in
+        ONE host-to-device copy.  Returns the re-attached length in
+        positions.
+
+        Refused, with the reservation released first: a quantized payload
+        into a pool of another ``kv_dtype``, a full-precision payload into
+        a quantized pool (re-quantizing would change the stream), and a
+        payload whose model shape (layers, heads, head_dim) differs.  The
+        payload may come from a pool of another block geometry.  A
+        quantized payload's ints and scales are written verbatim; a
+        full-precision payload is cast to the pool's dtype (no change when
+        they agree)."""
+        self.reserve(slot, seq_len, prompt=prompt)
+        payload_dtype = str(payload.get("kv_dtype", "fp32"))
+        if (self.quantized or payload_dtype in _QMAX) and payload_dtype != (
+                self.kv_dtype if self.quantized else "fp32"):
+            self.release(slot)
+            raise ValueError(
+                f"KV payload kv_dtype {payload_dtype!r} cannot restore into a kv_dtype "
+                f"{self.kv_dtype!r} pool: re-quantizing a payload would change the stream; "
+                f"spill and restore pools must agree on kv_dtype"
+            )
+        shared_pos = self.shared_len(slot)
+        length = int(payload["length"])
+        if length <= shared_pos:
+            return shared_pos
+        L, H, BS, D = self.num_layers, self.heads, self.block_size, self.head_dim
+        layers = payload["layers"]
+        names = ("k", "v") + (("sk", "sv") if self.quantized else ())
+        if sorted(layers) != sorted(f"layer{i}" for i in range(L)):
+            self.release(slot)
+            raise ValueError(
+                f"KV payload holds {len(layers)} layers, this pool {L}: payloads are "
+                f"portable across block geometries, not across model shapes"
+            )
+        host = [{name: np.asarray(layers[f"layer{i}"][name]) for name in names}
+                for i in range(L)]
+        k = host[0]["k"]
+        if any(h[n].shape != ((H, length, D) if n in ("k", "v") else (length,))
+               or (n in ("k", "v") and h[n].dtype != k.dtype) for h in host for n in names):
+            self.release(slot)
+            raise ValueError(
+                f"KV payload shape {(L,) + k.shape} does not match this pool's model shape "
+                f"(layers={L}, heads={H}, length={length}, head_dim={D}): payloads are "
+                f"portable across block geometries, not across model shapes"
+            )
+        # the payload's element bits and their torch dtype: 1-byte ints
+        # verbatim into a quantized pool; float32, or bfloat16 bits (a
+        # 2-byte non-float element: ``|V2`` or ml_dtypes' bfloat16), into
+        # a full-precision one
+        if self.quantized and k.dtype.itemsize == 1:
+            bits_np, bits_t = np.dtype(np.uint8), torch.uint8
+        elif not self.quantized and k.dtype == np.float32:
+            bits_np, bits_t = k.dtype, torch.float32
+        elif not self.quantized and k.dtype.kind == "V" and k.dtype.itemsize == 2:
+            bits_np, bits_t = np.dtype(np.int16), torch.int16
+        else:
+            self.release(slot)
+            raise ValueError(f"KV payload elements of dtype {k.dtype} cannot restore into a "
+                             f"kv_dtype {self.kv_dtype!r} pool")
+        lo_blk = shared_pos // BS
+        nb = self.blocks_for(length) - lo_blk
+        ids = self._owned[slot][lo_blk:lo_blk + nb]
+        if any(self._refcount.get(b, 0) > 1 or b in self._block_key for b in ids):
+            raise AssertionError("restore would write a shared block (copy-on-write breached)")
+        # one host buffer (scales first, so every part starts aligned),
+        # filled layer by layer with the private span of each part and
+        # zero-padded to whole blocks
+        span, lo, live = nb * BS, lo_blk * BS, length - lo_blk * BS
+        shapes = {"sk": (L, span), "sv": (L, span), "k": (L, H, span, D), "v": (L, H, span, D)}
+        dtypes = {"sk": np.dtype(np.float32), "sv": np.dtype(np.float32), "k": bits_np, "v": bits_np}
+        order = [n for n in ("sk", "sv", "k", "v") if n in names]
+        sizes = [int(np.prod(shapes[n])) * dtypes[n].itemsize for n in order]
+        buf = np.empty(sum(sizes), np.uint8)
+        at = 0
+        for name, nbytes in zip(order, sizes):
+            dst = buf[at:at + nbytes].view(dtypes[name]).reshape(shapes[name])
+            if name in ("k", "v"):
+                for i in range(L):
+                    dst[i, :, :live] = host[i][name][:, lo:].view(bits_np)
+                dst[:, :, live:] = 0
+            else:
+                for i in range(L):
+                    dst[i, :live] = host[i][name][lo:]
+                dst[:, live:] = 0
+            at += nbytes
+        dev = torch.from_numpy(buf).to(self.device)
+        self.restore_copies += 1
+        self.restore_bytes += int(buf.nbytes)
+        ids_t = torch.as_tensor(ids, dtype=torch.long, device=self.device)
+        at = 0
+        for name, nbytes in zip(order, sizes):
+            part = dev[at:at + nbytes]
+            at += nbytes
+            if name in ("sk", "sv"):
+                sc = self.scale_k if name == "sk" else self.scale_v
+                sc[:, ids_t] = part.view(torch.float32).view(L, nb, BS)
+                continue
+            x = part.view(bits_t).view(L, H, span, D)
+            pool = pool_bits(self.cache_k if name == "k" else self.cache_v)
+            if self.quantized:
+                x = x.view(pool.dtype)  # the ints verbatim
+            else:
+                x = (x.view(torch.bfloat16) if bits_t == torch.int16 else x).to(self.dtype)
+            pool[:, ids_t] = x.reshape(L, H, nb, BS, D).permute(0, 2, 1, 3, 4)
+        return shared_pos
+
     # --- invariants ---------------------------------------------------------
     def check_invariants(self) -> None:
         """Every block is free, retained (refcount 0 + indexed), or mapped
@@ -423,32 +609,36 @@ class PagedKVCache:
         """One slot's (max_blocks_per_seq,) block table."""
         return self.tables[slot].copy()
 
-    def gather_dense(self, slot: int, seq_len: int) -> Tuple[torch.Tensor, torch.Tensor]:
-        """``slot``'s first ``seq_len`` cached positions as dense
-        ``(L, H, seq_len, D)`` CPU tensors (dtype preserved)."""
+    def _slot_dense(self, slot: int, seq_len: int, names) -> Dict[str, torch.Tensor]:
+        """``slot``'s first ``seq_len`` positions gathered on the device:
+        ``k``/``v`` as ``(L, H, seq_len, D)`` pool bits (:func:`pool_bits`),
+        ``sk``/``sv`` as ``(L, seq_len)`` float32 scales."""
         n = self.blocks_for(seq_len)
         row = torch.as_tensor(self.tables[slot, :n], dtype=torch.long, device=self.device)
         L, H, BS, D = self.num_layers, self.heads, self.block_size, self.head_dim
+        pools = {"k": self.cache_k, "v": self.cache_v, "sk": self.scale_k, "sv": self.scale_v}
+        out = {}
+        for name in names:
+            if name in ("sk", "sv"):
+                out[name] = pools[name][:, row].reshape(L, n * BS)[:, :seq_len]
+            else:
+                pages = pool_bits(pools[name])[:, row]  # (L, n, H, BS, D)
+                out[name] = pages.permute(0, 2, 1, 3, 4).reshape(L, H, n * BS, D)[:, :, :seq_len]
+        return out
 
-        def dense(pool: torch.Tensor) -> torch.Tensor:
-            pages = pool_bits(pool)[:, row]  # (L, n, H, BS, D)
-            out = pages.permute(0, 2, 1, 3, 4).reshape(L, H, n * BS, D)
-            return out[:, :, :seq_len].cpu().view(pool.dtype)
-
-        return dense(self.cache_k), dense(self.cache_v)
+    def gather_dense(self, slot: int, seq_len: int) -> Tuple[torch.Tensor, torch.Tensor]:
+        """``slot``'s first ``seq_len`` cached positions as dense
+        ``(L, H, seq_len, D)`` CPU tensors (dtype preserved)."""
+        d = self._slot_dense(slot, seq_len, ("k", "v"))
+        return d["k"].cpu().view(self.dtype), d["v"].cpu().view(self.dtype)
 
     def gather_scales(self, slot: int, seq_len: int) -> Tuple[torch.Tensor, torch.Tensor]:
         """``slot``'s first ``seq_len`` per-position scales as dense
         ``(L, seq_len)`` float32 CPU tensors (quantized pools only)."""
         if not self.quantized:
             raise ValueError("a full-precision pool has no scales")
-        n = self.blocks_for(seq_len)
-        row = torch.as_tensor(self.tables[slot, :n], dtype=torch.long, device=self.device)
-
-        def dense(sc: torch.Tensor) -> torch.Tensor:
-            return sc[:, row].reshape(self.num_layers, -1)[:, :seq_len].cpu()
-
-        return dense(self.scale_k), dense(self.scale_v)
+        d = self._slot_dense(slot, seq_len, ("sk", "sv"))
+        return d["sk"].cpu(), d["sv"].cpu()
 
     def gather_dense_dequant(self, slot: int, seq_len: int) -> Tuple[torch.Tensor, torch.Tensor]:
         """:meth:`gather_dense` as float32, dequantized with
@@ -459,6 +649,13 @@ class PagedKVCache:
         sk, sv = self.gather_scales(slot, seq_len)
         # k is (L, H, S, D); the (L, S) scales broadcast over heads
         return dequantize_kv(k, sk[:, None]), dequantize_kv(v, sv[:, None])
+
+    def hbm_bytes(self) -> int:
+        """Device bytes of the pools (both caches, plus the scales)."""
+        n = 2 * self.cache_k.numel() * self.cache_k.element_size()
+        if self.quantized:
+            n += 2 * self.scale_k.numel() * 4
+        return n
 
     @property
     def bytes_per_token(self) -> int:

@@ -6,15 +6,23 @@ Requests are admitted FIFO within a tier into free slots, each with a
 KV-block reservation for its whole budget (prompt + max new tokens),
 charged net of re-attached shared prefix blocks.  A request whose
 budget could never fit the pool is rejected at submit with a reason; a
-queued request past its ``deadline_ms`` is expired with a reason.  A
-finished request releases its slot and blocks at once, and the next
-queued request takes them.
+queued request past its ``deadline_ms`` is expired with a reason; under
+sustained SLO pressure the engine sheds the queued batch tier
+(:meth:`ContinuousBatchingScheduler.shed_batch_queue`).  A finished
+request releases its slot and blocks at once, and the next queued
+request takes them.
 
-Interactive requests admit ahead of the batch tier.  When one waits
-with no admissible slot the JAX scheduler preempts a batch request by
-spilling its K/V to host; spill and restore are not ported yet, so that
-path raises ``NotImplementedError`` here.  Single-tier traffic never
-reaches it.
+Interactive requests admit ahead of the batch tier.  When one waits with
+no admissible slot, the scheduler PREEMPTS a batch request
+(:meth:`ContinuousBatchingScheduler._preempt_one`): the most recently
+admitted batch DECODE request spills its live K/V to host
+(:meth:`PagedKVCache.spill`), else a mid-PREFILL batch request drops its
+partial K/V; either way its slot and blocks are released and it
+re-queues at the FRONT of the batch tier as ``PREEMPTED``.  On
+re-admission a spilled request restores its K/V bit for bit (prefix
+blocks re-attach from the index) and rejoins decode mid-stream; a
+dropped one prefills again.  Spill and restore run in :meth:`admit`,
+between windows, after the window's one host sync.
 """
 
 from __future__ import annotations
@@ -64,12 +72,14 @@ class Request:
     prefill_pos: int = 0  # prompt positions with live KV so far
     finish_reason: Optional[str] = None  # "eos" | "length" | "rejected: ..."
     preemptions: int = 0
+    kv_spill: Optional[Dict[str, Any]] = None  # spill payload while PREEMPTED
     shared_prefix_pos: int = 0  # prompt positions served from shared blocks
     t_submit: Optional[float] = None
     arrival_abs_s: Optional[float] = None  # engine clock: t0 + arrival_s
     t_admitted: Optional[float] = None
     t_first_token: Optional[float] = None
     t_done: Optional[float] = None
+    t_enqueued: Optional[float] = None  # run-relative time of the last enqueue
 
     def __post_init__(self) -> None:
         self.prompt = np.asarray(self.prompt, np.int32).reshape(-1)
@@ -117,8 +127,9 @@ class ContinuousBatchingScheduler:
         self.active: Dict[int, Request] = {}  # slot -> request
         self.finished: List[Request] = []
         self.rejected: List[Request] = []
-        self.preemptions = 0
-        self.expired = 0
+        self.preemptions = 0  # spill or drop events
+        self.expired = 0  # deadline_ms expiries while queued
+        self.shed = 0  # batch requests shed under SLO pressure
         self._next_id = 0
 
     @property
@@ -134,6 +145,7 @@ class ContinuousBatchingScheduler:
             req.id = self._next_id
         self._next_id = max(self._next_id, req.id) + 1
         req.t_submit = now
+        req.t_enqueued = now
         if not self.kv.fits_with_sharing(req.max_len, req.prompt):
             self._reject(req, now)
             return req
@@ -162,13 +174,21 @@ class ContinuousBatchingScheduler:
     # --- admission ---------------------------------------------------------
     def _place(self, req: Request, now: float) -> None:
         slot = self.free_slots.popleft()
-        self.kv.reserve(slot, req.max_len, prompt=req.prompt)
-        req.state = RequestState.PREFILL
-        # shared prefix blocks already hold these positions' K/V; prefill
-        # starts past them, never past the last prompt token
-        req.prefill_pos = req.shared_prefix_pos = min(
-            self.kv.shared_len(slot), req.prompt_len - 1
-        )
+        if req.kv_spill is not None:
+            # a preempted request resumes: its K/V comes back bit for bit
+            # and it rejoins decode (its prompt was ingested before the spill)
+            self.kv.restore(slot, req.kv_spill, req.max_len, prompt=req.prompt)
+            req.kv_spill = None
+            req.state = RequestState.DECODE
+            req.prefill_pos = req.prompt_len
+        else:
+            self.kv.reserve(slot, req.max_len, prompt=req.prompt)
+            req.state = RequestState.PREFILL
+            # shared prefix blocks already hold these positions' K/V; prefill
+            # starts past them, never past the last prompt token
+            req.prefill_pos = req.shared_prefix_pos = min(
+                self.kv.shared_len(slot), req.prompt_len - 1
+            )
         req.slot = slot
         if req.t_admitted is None:
             req.t_admitted = now
@@ -192,15 +212,38 @@ class ContinuousBatchingScheduler:
         return out
 
     def _preempt_one(self, now: float) -> bool:
-        """Make room for a waiting interactive request by spilling a batch
-        request's K/V to host.  Returns False when no victim exists."""
-        if not any(r.tier == "batch" for r in self.active.values()):
+        """Free one slot for a waiting interactive request.  The victim is
+        the most recently admitted batch DECODE request (the least sunk
+        work lost), whose live K/V spills to host; else a mid-PREFILL
+        batch request, which drops its partial K/V and prefills again.
+        Returns False when no batch request holds a slot."""
+        decode_victims = [r for r in self.active.values()
+                          if r.tier == "batch" and r.state is RequestState.DECODE]
+        prefill_victims = [r for r in self.active.values()
+                           if r.tier == "batch" and r.state is RequestState.PREFILL]
+        pool = decode_victims or prefill_victims
+        if not pool:
             return False
-        raise NotImplementedError(
-            "preempting a batch request for the interactive tier needs KV "
-            "spill/restore, which is not ported yet (ROADMAP.md, serving: "
-            "preemption by spill and restore)"
-        )
+        victim = max(pool, key=lambda r: (r.t_admitted or 0.0, r.slot))
+        slot = victim.slot
+        del self.active[slot]
+        if victim.state is RequestState.DECODE:
+            # positions written so far: the prompt and one per decode step
+            # taken (the latest token is the next step's input, no K/V yet)
+            live = victim.prompt_len + max(0, victim.done_tokens - 1)
+            victim.kv_spill = self.kv.spill(slot, live)
+        else:
+            self.kv.release(slot)
+            victim.kv_spill = None
+            victim.prefill_pos = 0
+        self.free_slots.append(slot)
+        victim.slot = -1
+        victim.state = RequestState.PREEMPTED
+        victim.preemptions += 1
+        self.preemptions += 1
+        victim.t_enqueued = now
+        self._queues["batch"].appendleft(victim)  # it resumes first
+        return True
 
     def _expire(self, now: float) -> int:
         """Reject every queued request past its ``deadline_ms`` with a
@@ -224,6 +267,21 @@ class ContinuousBatchingScheduler:
                 else:
                     keep.append(req)
             q.extend(keep)
+        return n
+
+    def shed_batch_queue(self, now: float, reason: str) -> int:
+        """Reject every QUEUED batch-tier request with ``reason`` (which
+        names the pressure that triggered the shed).  Active slots and the
+        interactive tier are left alone.  Returns how many were shed."""
+        q = self._queues["batch"]
+        n = len(q)
+        while q:
+            req = q.popleft()
+            req.state = RequestState.REJECTED
+            req.finish_reason = f"rejected: shed ({reason})"
+            req.t_done = now
+            self.rejected.append(req)
+        self.shed += n
         return n
 
     def admit(self, now: float = 0.0) -> List[Request]:

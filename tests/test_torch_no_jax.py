@@ -1,10 +1,12 @@
-"""The port stands alone: no JAX and nothing of ``flexflow_tpu``.
+"""The port stands alone: no JAX, no ``ml_dtypes`` and nothing of ``flexflow_tpu``.
 
 A fresh interpreter, started in an empty directory, imports
 ``flexflow_tpu_torch`` and every submodule; afterwards neither ``jax``
 nor ``flexflow_tpu`` may be in ``sys.modules``, nothing may have been
 built, and the directory must still be empty.  An AST scan of the
-package and of ``chip_smoke.py`` finds no import of either.
+package and of ``chip_smoke.py`` finds no import of any of them (the
+card's machine has no ``ml_dtypes``: bfloat16 and float8 KV pages travel
+as bit views).
 """
 
 from __future__ import annotations
@@ -29,7 +31,8 @@ for name in names:
     importlib.import_module(name)
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.")
-             or m == "flexflow_tpu" or m.startswith("flexflow_tpu."))
+             or m == "flexflow_tpu" or m.startswith("flexflow_tpu.")
+             or m == "ml_dtypes" or m.startswith("ml_dtypes."))
 print(json.dumps({"modules": names, "bad": bad,
                   "triton": "triton" in sys.modules}))
 """
@@ -37,7 +40,7 @@ print(json.dumps({"modules": names, "bad": bad,
 
 def _forbidden(mod: str) -> bool:
     top = mod.split(".")[0]
-    return top in ("jax", "jaxlib", "flexflow_tpu")
+    return top in ("jax", "jaxlib", "flexflow_tpu", "ml_dtypes")
 
 
 @pytest.fixture(autouse=True)
@@ -74,6 +77,10 @@ def test_import_pulls_in_no_jax(tmp_path):
         "flexflow_tpu_torch.metrics", "flexflow_tpu_torch.optimizer",
         "flexflow_tpu_torch.runtime.executor", "flexflow_tpu_torch.runtime.driver",
         "flexflow_tpu_torch.model", "flexflow_tpu_torch.models.transformer",
+        # preemption, drain and resume
+        "flexflow_tpu_torch.serve.wire", "flexflow_tpu_torch.runtime.faults",
+        "flexflow_tpu_torch.serve.kvcache", "flexflow_tpu_torch.serve.scheduler",
+        "flexflow_tpu_torch.serve.driver",
     }
     assert list(tmp_path.iterdir()) == []  # importing wrote nothing
     built_after = sorted(build_dir.glob("*")) if build_dir.exists() else []

@@ -303,20 +303,6 @@ def test_explicit_paged_on_cpu_raises(port_model):
         ServeEngine(port_model, device="cpu", attn="paged", **ENGINE)
 
 
-def test_interactive_tier_preemption_not_ported(port_model):
-    """Batch requests hold every slot; an interactive arrival then needs
-    preemption by spill, which raises until spill/restore is ported."""
-    eng = ServeEngine(port_model, device="cpu", **ENGINE)
-    rng = np.random.default_rng(0)
-    for i in range(SLOTS):
-        eng.sched.submit(Request(prompt=rng.integers(0, VOCAB, 5), max_new_tokens=4, id=i))
-    eng.sched.admit()
-    eng.sched.submit(Request(
-        prompt=rng.integers(0, VOCAB, 5), max_new_tokens=4, id=9, tier="interactive"))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        eng.sched.admit()
-
-
 def test_metrics_stream_reads_back_through_jax_reader(port_model, tmp_path):
     path = str(tmp_path / "serve.jsonl")
     eng = ServeEngine(port_model, device="cpu", metrics_out=path, **ENGINE)

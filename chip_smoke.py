@@ -100,7 +100,9 @@ Phases, each printing one JSON line; any failure exits non-zero:
    ``slice_d128`` (B 2, H 12, S 512, D 128) and ``dropout_d64`` (B 2,
    H 12, S 512, D 64, dropout 0.1); float32 adds ``slice_d128`` and
    ``dropout_causal`` (B 2, H 4, S 512, D 128, causal, dropout 0.1), the
-   float32 backward's D 128 kernels with the mask and dropout together.
+   float32 backward's D 128 kernels with the mask and dropout together;
+   ``gpt_causal`` (B 4, H 12, S 1024, D 64, causal, float32 and
+   bfloat16) is the shape that phase ``gpt_train`` gives them.
    Tolerances, relative to max |reference|: float32 2e-5 forward, 1e-4
    backward (the kernels sum tile by tile, the plain versions over whole
    rows; the float32 kernels' products are 3xTF32); bfloat16 2e-2 (both
@@ -121,8 +123,28 @@ Phases, each printing one JSON line; any failure exits non-zero:
    relative (float32) or 2e-2 (bfloat16).  ``train_profile`` traces 3
    more steps of the float32 model, and of the bfloat16 model with flash
    and with the plain core: device time by kernel and the idle share.
+   ``train_fit`` (:func:`train_fit_phase`): BERT-Base on tokens (vocab
+   30522, the sinusoidal ``pos_embed`` input) through ``FFModel.fit``, 160
+   samples for 2 epochs with shuffle: 12 launches of each flash kernel a
+   step, one host sync an epoch, the losses within 1e-4 of the same fit on
+   the plain core; a run checkpointing every 6 steps is killed by the
+   fault plan at step 14 and a fresh model resumes from step 12 to the
+   reference's weights, moments and step bit for bit; ``eval`` over 40
+   samples (a padded tail) equals its rows recomputed on the host; the
+   checkpoint's bytes and save, snapshot and load times.
+   ``gpt_train`` (:func:`gpt_train_phase`): ``GPT2_SMALL`` through
+   ``FFModel`` (``gpt_decoder``, batch 4, seq 1024), 3 steps in float32
+   and bfloat16 on the causal flash kernels (12 of each a step), losses
+   within 1e-4 / 2e-2 of the plain core, a traced step for the flash
+   kernels' device time; ``gpt_train_serve``: the trained float32 weights
+   in the paged engine, greedy streams against ``gpt_generate``'s by the
+   speculative arm's margin rule, launches by route gated.
 6. ``kernels``: one line ``{"kernels": [...]}`` with each kernel's
-   route, source, the TPU kernel it replaces, launches on its path
+   route, source, the TPU kernel it replaces, launches by path
+   (``launches_by_path``: each path's count, ``launches`` their sum;
+   the flash kernels over ``train``, ``train_fit`` and its resume and
+   eval, and ``gpt_train``; the paged kernel over ``serve`` and
+   ``gpt_train_serve``), launches on its path
    (``paged_attention_quant``: the int8 ``serve_quant`` run, fp8 beside
    it; ``paged_attention``: by route as well), error against the plain
    version, times and bound, and ``was_ms`` beside a redesigned kernel's
@@ -158,6 +180,15 @@ TRAIN_B, TRAIN_S, TRAIN_CLASSES, TRAIN_STEPS, TRAIN_LR = 16, 512, 64, 5, 1e-4
 FLASH_TOL = {("float32", "fwd"): 2e-5, ("float32", "bwd"): 1e-4,
              ("bfloat16", "fwd"): 2e-2, ("bfloat16", "bwd"): 2e-2}
 TRAIN_LOSS_TOL = {"float32": 1e-4, "bfloat16": 2e-2}  # flash vs sdpa, relative
+# train_fit: BERT-Base on tokens through FFModel.fit, 160 samples (10 batches
+# of 16) for 2 epochs with shuffle; checkpoints every 6 steps; the fault plan
+# kills the run at the top of step 14; a fresh model resumes from step 12
+FIT_VOCAB, FIT_SAMPLES, FIT_EVAL, FIT_EPOCHS = 30522, 160, 40, 2
+FIT_CKPT_EVERY, FIT_KILL = 6, 14
+EVAL_TOL = 1e-5  # eval's device sums against the rows recomputed on the host
+# gpt_train: GPT2_SMALL through FFModel at batch 4, seq 1024, 3 train steps,
+# then 8 greedy tokens from 64-token prompts, against the paged engine
+GPT_B, GPT_STEPS, GPT_PROMPT, GPT_NEW = 4, 3, 64, 8
 # paged against gather programs over quantized pools, relative to the largest
 # probability: a float32 difference between the two paths can flip one
 # stored int8 step or e4m3 step (up to 1/8 of an element) of the K/V the
@@ -933,6 +964,10 @@ def main() -> int:
     # the float32 backward's D 128 kernels, and their mask and dropout together
     flash_case("slice_d128", 2, TH, 512, 512, 128, f32, False)
     flash_case("dropout_causal", 2, 4, 512, 512, 128, f32, True, 0.1, -7)
+    # the shape phase gpt_train gives the kernels: GPT-2 small, batch 4, causal at S 1024
+    GH, GD = GPT2_SMALL["heads"], GPT2_SMALL["hidden"] // GPT2_SMALL["heads"]
+    flash_case("gpt_causal", GPT_B, GH, SEQ, SEQ, GD, f32, True)
+    flash_case("gpt_causal", GPT_B, GH, SEQ, SEQ, GD, bf16, True)
 
     def flash_bound(kind, dtype):
         """Least time for one kernel's work at the slice's shape: each
@@ -1052,6 +1087,13 @@ def main() -> int:
               **tprof, "card": card})
     del traced
 
+    # --- 5b. train_fit / 5c. gpt_train: fit, checkpoints, the decoder ---------
+    fit_launches = train_fit_phase(dev, card, zero_counts)
+    torch.cuda.empty_cache()
+    gpt_launches = gpt_train_phase(dev, card, zero_counts,
+                                   (peak_bw, peak_3xtf32, peak_bf16))
+    torch.cuda.empty_cache()
+
     # --- 6. kernels -----------------------------------------------------------
     src = "flexflow_tpu_torch/ops/cuda/csrc/"
     tpu = "flexflow_tpu/ops/pallas/"
@@ -1060,12 +1102,16 @@ def main() -> int:
         return {k: t[k] for k in ("ms", "was_ms", "row_group_g1_ms", "plain_ms", "bound_ms",
                                   "bound_by", "library_ms") if k in t}
 
+    # launches by path: each path's count, read just after it ran with every
+    # count set to 0 just before it; "launches" is their sum
+    paged_paths = {"serve": launches_serve, "gpt_train_serve": gpt_launches["serve"]}
     kernels = [{
         "name": "paged_attention",
         "route": "cuda",
         "source": src + "paged_attention.cu",
         "replaces": tpu + "paged_attention.py:122",
-        "launches": launches_serve,
+        "launches": sum(paged_paths.values()),
+        "launches_by_path": paged_paths,
         "launches_by_route": by_route_serve,
         "max_abs_err": worst["float32"],
         **timed(t_dec),
@@ -1080,14 +1126,22 @@ def main() -> int:
             ("dq", "flash_bwd_dq", tpu + "flash_attention.py:407"),
             ("dkv", "flash_bwd_dkv", tpu + "flash_attention.py:460")):
         t32, t16 = flash_t["float32"][kind], flash_t["bfloat16"][kind]
+        paths32 = {"train": train_launches["float32"][kind],
+                   "train_fit": fit_launches["fit"][kind],
+                   "train_fit_resume": fit_launches["resume"][kind],
+                   "train_fit_eval": fit_launches["eval"][kind],
+                   "gpt_train": gpt_launches["float32"][kind]}
+        paths16 = {"train": train_launches["bfloat16"][kind],
+                   "gpt_train": gpt_launches["bfloat16"][kind]}
         entry = {"name": name, "route": "cuda", "source": src + "flash_attention.cu",
-                 "replaces": replaces, "launches": train_launches["float32"][kind],
-                 "max_abs_err": flash_worst[kind],
+                 "replaces": replaces, "launches": sum(paths32.values()),
+                 "launches_by_path": paths32, "max_abs_err": flash_worst[kind],
                  **{k: t32[k] for k in ("ms", "was_ms", "plain_ms", "bound_ms", "bound_by",
                                         "library_ms") if k in t32},
                  "bfloat16": {**{k: t16[k] for k in ("ms", "was_ms", "plain_ms", "bound_ms",
                                                      "bound_by", "library_ms") if k in t16},
-                              "launches": train_launches["bfloat16"][kind]}}
+                              "launches": sum(paths16.values()),
+                              "launches_by_path": paths16}}
         if kind == "fwd":
             entry["also_replaces"] = tpu + "flash_attention.py:98"
         kernels.append(entry)
@@ -1470,6 +1524,383 @@ def resilience_phases(dev, model, engine_kw, card, zero_counts, routes, margin_r
         if not all(checks.values()):
             raise SystemExit(f"serve_drain: failed {[k for k, v in checks.items() if not v]}")
         del eng2
+
+
+def train_fit_phase(dev, card, zero_counts) -> dict:
+    """Phase ``train_fit``: BERT-Base on tokens (vocab 30522, batch 16, seq
+    512, 64 classes, float32, Adam(1e-4)) through ``FFModel.fit``: 160
+    samples, 2 epochs, shuffle seed 0.  The uninterrupted fit is the
+    reference; a second run checkpoints every 6 steps and dies at the top
+    of step 14 (the fault plan's ``device_loss``); a fresh model resumes
+    from the step-12 checkpoint and must end bit for bit where the
+    reference ended (weights, Adam moments, step).  The same fit with the
+    plain attention core gives the loss curve to hold the flash one
+    against; ``eval`` over 40 more samples (the last batch padded) is held
+    against its rows recomputed on the host.  Returns the flash launches
+    of the reference fit and of the resumed one."""
+    import os
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from flexflow_tpu_torch.model import _checkpoint_digest
+    from flexflow_tpu_torch.models.transformer import BERT_BASE
+    from flexflow_tpu_torch.ops.cuda import flash_attention as fa
+    from flexflow_tpu_torch.ops.cuda import paged_attention as pa
+    from flexflow_tpu_torch.runtime.driver import FIT_METRICS, build_model, make_token_data
+    from flexflow_tpu_torch.runtime.faults import FaultPlan, InjectedFault, set_fault_plan
+
+    layers, n, n_eval = BERT_BASE["num_layers"], FIT_SAMPLES, FIT_EVAL
+    xs, y = make_token_data(n + n_eval, TRAIN_S, BERT_BASE["hidden"], FIT_VOCAB, TRAIN_CLASSES,
+                            SEED)
+    train_x, train_y = [a[:n] for a in xs], y[:n]
+    kw = dict(batch=TRAIN_B, seq=TRAIN_S, num_classes=TRAIN_CLASSES, vocab=FIT_VOCAB,
+              lr=TRAIN_LR, seed=SEED, device=dev, compute_dtype="float32", metrics=FIT_METRICS,
+              **BERT_BASE)
+    fit_kw = dict(epochs=FIT_EPOCHS, shuffle=True, seed=SEED, verbose=False)
+    nb = n // TRAIN_B
+    steps = nb * FIT_EPOCHS
+
+    def recording(model):
+        """Keep each step's loss tensor as the fit loop takes the step (no
+        host sync; read once at the end)."""
+        ex, losses = model.executor, []
+        step = ex.train_step
+
+        def train_step(inputs, labels):
+            loss, m = step(inputs, labels)
+            losses.append(loss)
+            return loss, m
+
+        ex.train_step = train_step
+        return losses
+
+    def state(model):
+        ex = model.executor
+        named = ex.opt_state_by_name()
+        tensors = ex.param_list() + [t for slot in ("m", "v") for ws in named[slot].values()
+                                     for t in ws.values()]
+        return tensors, named["step"], ex._step_count
+
+    ref = build_model(use_flash=True, **kw)
+    w0 = ref.get_weights()
+    ref_losses = recording(ref)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()  # every kernel count to 0 just before the main path
+    t0 = time.perf_counter()
+    ref.fit(train_x, train_y, **fit_kw)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    launches, paged_during = dict(fa.LAUNCHES), pa.LAUNCHES
+    peak_mem = torch.cuda.max_memory_allocated()
+    fit_syncs = ref.executor.host_syncs
+
+    # eval: 40 samples in batches of 16, 16 and 8 (padded to 16), one sync
+    s0 = ref.executor.host_syncs
+    zero_counts()
+    t0 = time.perf_counter()
+    pe = ref.eval([a[n:] for a in xs], y[n:])
+    eval_s = time.perf_counter() - t0
+    eval_launches, eval_syncs = dict(fa.LAUNCHES), ref.executor.host_syncs - s0
+    loss_sum, correct = 0.0, 0
+    for start in range(0, n_eval, TRAIN_B):
+        rows = min(TRAIN_B, n_eval - start)
+        bx = [a[n + start:n + start + rows] for a in xs]
+        bx = [np.concatenate([b, np.repeat(b[-1:], TRAIN_B - rows, axis=0)]) for b in bx]
+        probs = ref.eval_batch(bx)[:rows].double().cpu().numpy()
+        lab = y[n + start:n + start + rows, 0]
+        loss_sum += float(-np.log(np.maximum(probs[np.arange(rows), lab], 1e-12)).sum())
+        correct += int((probs.argmax(-1) == lab).sum())
+    eval_rel = abs(pe.sparse_cce_loss - loss_sum) / abs(loss_sum)
+    eval_ok = (eval_syncs == 1 and pe.train_all == n_eval and pe.train_correct == correct
+               and eval_rel <= EVAL_TOL and eval_launches["fwd"] == layers * 3
+               and eval_launches["dq"] == eval_launches["dkv"] == 0)
+
+    tmp = tempfile.mkdtemp(prefix="ffckpt_")
+    try:
+        ck = os.path.join(tmp, "fit.npz")
+        killed = build_model(use_flash=True, **kw)
+        killed.set_weights(w0)
+        set_fault_plan(FaultPlan.parse(f"device_loss@{FIT_KILL}"))
+        died = None
+        t0 = time.perf_counter()
+        try:
+            killed.fit(train_x, train_y, checkpoint_every=FIT_CKPT_EVERY, checkpoint_path=ck,
+                       **fit_kw)
+        except InjectedFault as e:
+            died = str(e)
+        finally:
+            set_fault_plan(None)
+        killed_s = time.perf_counter() - t0
+        killed_steps, killed_syncs = killed.executor._step_count, killed.executor.host_syncs
+        ckpt_bytes = os.path.getsize(ck)
+        with np.load(ck) as z:
+            manifest = json.loads(z["meta/manifest"].tobytes().decode())
+
+        resumed = build_model(use_flash=True, **kw)
+        torch.cuda.synchronize()
+        zero_counts()
+        t0 = time.perf_counter()
+        resumed.fit(train_x, train_y, resume=ck, **fit_kw)
+        torch.cuda.synchronize()
+        resume_s = time.perf_counter() - t0
+        resume_launches = dict(fa.LAUNCHES)
+        (ta, sa, ca), (tb, sb, cb) = state(ref), state(resumed)
+        bit_identical = (sa == sb and ca == cb == steps and len(ta) == len(tb)
+                         and all(torch.equal(a, b) for a, b in zip(ta, tb)))
+        differing = sum(not torch.equal(a, b) for a, b in zip(ta, tb))
+
+        # the save, the host snapshot alone, and the load, each timed apart
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        flat, _ = resumed._snapshot_checkpoint()
+        snapshot_s = time.perf_counter() - t0
+        del flat
+        t0 = time.perf_counter()
+        saved = resumed.save_checkpoint(os.path.join(tmp, "save.npz"))
+        save_s = time.perf_counter() - t0
+        save_bytes = os.path.getsize(saved)
+        os.remove(saved)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        killed.load_checkpoint(ck)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        del killed
+        # two of the load's host stages alone: reading the archive, hashing it
+        t0 = time.perf_counter()
+        with np.load(ck) as z:
+            arrays = {key: np.asarray(z[key]) for key in z.files}
+        read_s = time.perf_counter() - t0
+        arrays.pop("meta/manifest")
+        t0 = time.perf_counter()
+        _checkpoint_digest(arrays)
+        digest_s = time.perf_counter() - t0
+        del arrays
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    plain = build_model(use_flash=False, **kw)
+    plain.set_weights(w0)
+    plain_losses = recording(plain)
+    flash_before = dict(fa.LAUNCHES)
+    t0 = time.perf_counter()
+    plain.fit(train_x, train_y, **fit_kw)
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    if dict(fa.LAUNCHES) != flash_before:
+        raise SystemExit("train_fit: use_flash=False launched a flash kernel")
+    rl = torch.stack(ref_losses).cpu().tolist()
+    pl = torch.stack(plain_losses).cpu().tolist()
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(rl, pl))
+    ck_step = FIT_KILL // FIT_CKPT_EVERY * FIT_CKPT_EVERY  # the last checkpoint's step
+    expect, expect_resume = layers * steps, layers * (steps - ck_step)
+    cursor = {"epoch": ck_step // nb, "batch": ck_step % nb, "shuffle": True, "seed": SEED,
+              "batches": nb}
+    checks = {
+        "launches_12_a_step": all(v == expect for v in launches.values()) and paged_during == 0,
+        "resume_launches_12_a_step": all(v == expect_resume for v in resume_launches.values()),
+        "killed_at_step": died is not None and "device_loss" in died and killed_steps == FIT_KILL,
+        "checkpoint_cursor": manifest["step"] == ck_step and manifest["loader"] == cursor,
+        "resume_bit_identical": bit_identical,
+        "losses_vs_plain_core": (len(rl) == len(pl) == steps
+                                 and all(math.isfinite(v) for v in rl + pl)
+                                 and loss_rel <= TRAIN_LOSS_TOL["float32"]),
+        "host_syncs_one_an_epoch": fit_syncs == FIT_EPOCHS,
+        "eval_equals_rows": eval_ok,
+    }
+    line = {
+        "phase": "train_fit", "model": "BERT_BASE", **BERT_BASE, "vocab": FIT_VOCAB,
+        "batch": TRAIN_B, "seq": TRAIN_S, "classes": TRAIN_CLASSES, "compute_dtype": "float32",
+        "optimizer": f"Adam({TRAIN_LR})", "samples": n, "epochs": FIT_EPOCHS, "shuffle": True,
+        "steps": steps, "parameters": ref.num_parameters(), "fit_s": fit_s,
+        "step_ms_mean": fit_s / steps * 1e3, "samples_per_s": n * FIT_EPOCHS / fit_s,
+        "peak_mem_bytes": peak_mem, "host_syncs": fit_syncs,
+        "host_syncs_per_epoch": fit_syncs / FIT_EPOCHS,
+        "host_stall_ms": ref.executor.host_stall_s * 1e3, "losses": rl, "plain_losses": pl,
+        "plain_fit_s": plain_s, "loss_rel_err_vs_plain": loss_rel,
+        "loss_tol": TRAIN_LOSS_TOL["float32"], "flash_launches": launches,
+        "expected_launches_each": expect,
+        "eval": {"samples": pe.train_all, "loss": pe.sparse_cce_loss / pe.train_all,
+                 "accuracy": pe.accuracy, "correct": pe.train_correct,
+                 "recomputed_correct": correct, "loss_rel_err_vs_rows": eval_rel,
+                 "host_syncs": eval_syncs, "flash_launches": eval_launches, "s": eval_s},
+        "kill": {"fault": died, "at_step": killed_steps, "host_syncs": killed_syncs,
+                 "checkpoint_every": FIT_CKPT_EVERY, "s": killed_s, "manifest_step":
+                 manifest["step"], "cursor": manifest["loader"]},
+        "checkpoint": {"bytes": ckpt_bytes, "save_ms": save_s * 1e3, "save_bytes": save_bytes,
+                       "snapshot_ms": snapshot_s * 1e3, "load_ms": load_s * 1e3,
+                       "read_ms": read_s * 1e3, "digest_ms": digest_s * 1e3},
+        "resume": {"s": resume_s, "steps": steps - manifest["step"],
+                   "flash_launches": resume_launches, "expected_launches_each": expect_resume,
+                   "differing_tensors": differing},
+        "checks": checks, "ok": all(checks.values()), "card": card,
+    }
+    emit(line)
+    if not line["ok"]:
+        raise SystemExit(f"train_fit: failed checks {[k for k, v in checks.items() if not v]}")
+    return {"fit": launches, "resume": resume_launches, "eval": eval_launches}
+
+
+def gpt_train_phase(dev, card, zero_counts, peak) -> dict:
+    """Phase ``gpt_train``: ``GPT2_SMALL`` built through ``FFModel``
+    (``gpt_decoder``: vocab 50257, batch 4, seq 1024), 3 train steps on
+    next-token labels in float32 and in bfloat16, on the causal flash
+    kernels (12 launches of each a step), the losses held against the same
+    steps on the plain attention core; one more step traced for the flash
+    kernels' device time a launch, beside each kernel's bound at this causal
+    shape (``peak``: bytes/s, float32-accurate and bfloat16 flop/s; the
+    flops of the visible pairs only).  Then the float32 model's weights go into the
+    port's ``GPTDecoder`` and paged ``ServeEngine`` (float32 pool): its
+    greedy streams must equal ``gpt_generate``'s (full-prefix forwards)
+    up to the first token whose relative top-2 margin there is under
+    ``SPEC_MARGIN``.  Returns the launches of each path."""
+    import numpy as np
+    import torch
+
+    from flexflow_tpu_torch.models.transformer import (
+        GPT2_SMALL, GPTDecoder, gpt_generate, load_jax_params,
+    )
+    from flexflow_tpu_torch.ops.cuda import flash_attention as fa
+    from flexflow_tpu_torch.ops.cuda import paged_attention as pa
+    from flexflow_tpu_torch.runtime.driver import build_gpt, make_gpt_batches
+    from flexflow_tpu_torch.serve import ServeEngine
+    from flexflow_tpu_torch.serve.scheduler import Request
+
+    layers = GPT2_SMALL["num_layers"]
+    batches = make_gpt_batches(GPT_STEPS, GPT_B, SEQ, VOCAB, SEED)
+    out, trained = {}, None
+    for cdt in ("float32", "bfloat16"):
+        kw = dict(batch=GPT_B, seq=SEQ, vocab=VOCAB, compute_dtype=cdt, lr=TRAIN_LR,
+                  seed=SEED, device=dev, **GPT2_SMALL)
+        model = build_gpt(use_flash=True, **kw)
+        plain = build_gpt(use_flash=False, **kw)
+        plain.set_weights(model.get_weights())
+        ex = model.executor
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts()  # every kernel count to 0 just before the main path
+        losses, times = [], []
+        for ids, yb in batches:
+            t0 = time.perf_counter()
+            loss, _ = ex.train_step([ids], yb)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            losses.append(loss)
+        launches, paged_during = dict(fa.LAUNCHES), pa.LAUNCHES
+        peak_mem = torch.cuda.max_memory_allocated()
+        plain_losses = [plain.executor.train_step([ids], yb)[0] for ids, yb in batches]
+        if dict(fa.LAUNCHES) != launches:
+            raise SystemExit("gpt_train: use_flash=False launched a flash kernel")
+        del plain
+        torch.cuda.empty_cache()
+        rl = torch.stack(losses).cpu().tolist()
+        pl = torch.stack(plain_losses).cpu().tolist()
+        loss_rel = max(abs(a - b) / abs(b) for a, b in zip(rl, pl))
+        ids, yb = batches[-1]
+        prof = device_profile(lambda: ex.train_step([ids], yb), top=None)
+        prof.pop("result")
+        flash_us = {k["name"]: {"us": k["total_us"], "count": k["count"]}
+                    for k in prof.pop("top_kernels_us") if "flash" in k["name"]}
+        # each kernel's bound at this shape: (B, H, S, D) tensors read and
+        # written once (fwd: q k v o + lse; dq: q k v do dq + lse, delta;
+        # dkv: q k v do dk dv + lse, delta), or 4 / 6 / 8 x D flops a
+        # visible (row, key) pair, S (S + 1) / 2 of them a head
+        heads, d_ = GPT2_SMALL["heads"], GPT2_SMALL["hidden"] // GPT2_SMALL["heads"]
+        mat = GPT_B * heads * SEQ * d_ * (4 if cdt == "float32" else 2)
+        rows = GPT_B * heads * SEQ * 4
+        pairs = GPT_B * heads * SEQ * (SEQ + 1) // 2
+        rate = peak[1] if cdt == "float32" else peak[2]
+        bounds = {}
+        for kind, key, nbytes, fl in (("fwd", "flash_fwd", 4 * mat + rows, 4),
+                                      ("dq", "flash_bwd_dq", 5 * mat + 2 * rows, 6),
+                                      ("dkv", "flash_bwd_dkv", 6 * mat + 2 * rows, 8)):
+            t_b, t_o = nbytes / peak[0] * 1e3, fl * d_ * pairs / rate * 1e3
+            us = [v["us"] / v["count"] for n, v in flash_us.items() if key + "_" in n]
+            bounds[kind] = {"ms": us[0] / 1e3 if us else None, "bound_ms": max(t_b, t_o),
+                            "bound_by": "bytes" if t_b >= t_o else "operations"}
+        expect = layers * GPT_STEPS
+        ok = (all(math.isfinite(v) for v in rl + pl) and paged_during == 0
+              and all(v == expect for v in launches.values())
+              and loss_rel <= TRAIN_LOSS_TOL[cdt])
+        emit({"phase": "gpt_train", "model": "GPT2_SMALL", **GPT2_SMALL, "vocab": VOCAB,
+              "batch": GPT_B, "seq": SEQ, "causal": True, "compute_dtype": cdt,
+              "optimizer": f"Adam({TRAIN_LR})", "steps": GPT_STEPS, "losses": rl,
+              "plain_losses": pl, "loss_rel_err_vs_plain": loss_rel,
+              "loss_tol": TRAIN_LOSS_TOL[cdt], "step_ms": [t * 1e3 for t in times],
+              "peak_mem_bytes": peak_mem, "parameters": model.num_parameters(),
+              "flash_launches": launches, "expected_launches_each": expect,
+              "traced_step": {**prof, "flash_kernels_us": flash_us},
+              "flash_ms_per_launch": bounds, "ok": ok, "card": card})
+        if not ok:
+            raise SystemExit(f"gpt_train {cdt}: launches {launches} (expected {expect} each), "
+                             f"loss rel err vs plain {loss_rel}")
+        out[cdt] = launches
+        if cdt == "float32":
+            trained = model
+        del model, ex
+        torch.cuda.empty_cache()
+
+    # train -> serve: gpt_generate on the trained float32 model against the
+    # paged engine over a float32 pool on the same weights
+    prompt = batches[0][0][:, :GPT_PROMPT]
+    t0 = time.perf_counter()
+    gen = gpt_generate(trained, prompt, GPT_NEW)
+    gen_s = time.perf_counter() - t0
+    cur = np.zeros((GPT_B, SEQ), np.int32)
+    cur[:, :GPT_PROMPT + GPT_NEW] = gen
+    probs = trained.eval_batch([cur]).reshape(GPT_B, SEQ, -1)
+    top2 = probs[:, GPT_PROMPT - 1:GPT_PROMPT + GPT_NEW - 1].topk(2, dim=-1).values
+    margins = ((top2[..., 0] - top2[..., 1]) / top2[..., 0]).cpu().numpy()
+    del probs, top2
+    dec = GPTDecoder(seq=SEQ, vocab=VOCAB, seed=SEED, device=dev, **GPT2_SMALL)
+    load_jax_params(dec, trained.get_weights())
+    del trained
+    torch.cuda.empty_cache()
+    eng = ServeEngine(dec, attn="auto", slots=GPT_B, block_size=BS, prefill_chunk=CHUNK,
+                      sync_every=4, device=dev)
+    reqs = [Request(prompt=prompt[b].copy(), max_new_tokens=GPT_NEW, id=b)
+            for b in range(GPT_B)]
+    zero_counts()
+    rep = eng.run(reqs)
+    serve_launches, by_route = pa.LAUNCHES, dict(pa.LAUNCHES_BY_ROUTE)
+    expect = layers * (rep.decode_steps + rep.prefill_dispatches)
+    expect_route = {"single": 0, "split": layers * rep.prefill_dispatches,
+                    "decode": layers * rep.decode_steps}
+    streams, diverged = [], []
+    for b, r in enumerate(reqs):
+        want = gen[b, GPT_PROMPT:].tolist()
+        got = [int(t) for t in r.tokens]
+        small = [j for j, m in enumerate(margins[b]) if m < SPEC_MARGIN]
+        cut = small[0] if small else GPT_NEW
+        streams.append(got == want)
+        if got != want:
+            k = next(j for j, (u, v) in enumerate(zip(got, want)) if u != v)
+            diverged.append({"request": b, "token": k, "engine": got[k], "generate": want[k],
+                             "first_small_margin": small[0] if small else None,
+                             "margin": float(margins[b][k])})
+            if got[:cut] != want[:cut]:
+                streams[-1] = None
+    checks = {
+        "streams": all(s is not None for s in streams) and rep.requests_finished == GPT_B,
+        "launches": serve_launches == expect and by_route == expect_route,
+        "host_syncs": rep.host_syncs == rep.windows,
+    }
+    emit({"phase": "gpt_train_serve", "model": "GPT2_SMALL", "kv_dtype": "fp32",
+          "prompt_len": GPT_PROMPT, "new_tokens": GPT_NEW, "generate_s": gen_s,
+          "generated": gen[:, GPT_PROMPT:].tolist(), "streams_equal": sum(bool(s) for s in streams),
+          "requests": GPT_B, "diverged": diverged, "min_margin": float(margins.min()),
+          "paged_attention_launches": serve_launches, "expected_launches": expect,
+          "launches_by_route": by_route, "expected_by_route": expect_route,
+          "host_syncs": rep.host_syncs, "windows": rep.windows, "checks": checks,
+          "ok": all(checks.values()), "card": card})
+    if not all(checks.values()):
+        raise SystemExit(f"gpt_train_serve: failed checks {checks}; diverged {diverged}")
+    out["serve"] = serve_launches
+    return out
 
 
 def device_profile(fn, top=10, host_top=0) -> dict:

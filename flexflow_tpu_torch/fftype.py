@@ -12,7 +12,9 @@ import itertools
 
 import torch
 
-__all__ = ["DataType", "ActiMode", "LossType", "MetricsType", "OperatorType", "LayerID"]
+__all__ = [
+    "DataType", "ActiMode", "AggrMode", "LossType", "MetricsType", "OperatorType", "LayerID",
+]
 
 
 class DataType(enum.Enum):
@@ -38,6 +40,14 @@ class ActiMode(enum.Enum):
     GELU = "gelu"
 
 
+class AggrMode(enum.Enum):
+    """Embedding aggregation over the bag axis."""
+
+    NONE = "none"
+    SUM = "sum"
+    AVG = "avg"
+
+
 class LossType(enum.Enum):
     CATEGORICAL_CROSSENTROPY = "categorical_crossentropy"
     SPARSE_CATEGORICAL_CROSSENTROPY = "sparse_categorical_crossentropy"
@@ -56,9 +66,10 @@ class MetricsType(enum.Enum):
 
 
 class OperatorType(enum.Enum):
-    """The op kinds of the encoder train path."""
+    """The op kinds of the encoder and decoder train paths."""
 
     NOOP = "noop"
+    WEIGHT = "weight"
     DROPOUT = "dropout"
     LINEAR = "linear"
     SOFTMAX = "softmax"
@@ -67,6 +78,8 @@ class OperatorType(enum.Enum):
     EW_ADD = "ew_add"
     REDUCE_MEAN = "reduce_mean"
     MULTIHEAD_ATTENTION = "multihead_attention"
+    EMBEDDING = "embedding"
+    GATHER = "gather"
 
 
 class LayerID:

@@ -1,25 +1,41 @@
-"""``FFModel``: the layer-builder API, compile, and weight access.
+"""``FFModel``: the layer-builder API, compile, the fit loop, and
+checkpoints.
 
 Counterpart of ``flexflow_tpu/model.py`` ``FFModel``, limited to what the
-encoder train path uses: the builders ``create_tensor``, ``dense``,
-``multihead_attention``, ``add``, ``layer_norm``, ``dropout``,
-``reduce_mean``, ``softmax`` and ``reshape`` (same signatures and layer
-names), ``compile`` on one device, and ``get_weights`` / ``set_weights``
-/ ``num_parameters``.
+encoder and decoder train paths use: the builders ``create_tensor``,
+``dense``, ``embedding``, ``parameter``, ``multihead_attention``,
+``add``, ``layer_norm``, ``dropout``, ``reduce_mean``, ``softmax`` and
+``reshape`` (same signatures and layer names), ``compile`` on one
+device, ``fit`` / ``eval`` / ``eval_batch``, ``get_weights`` /
+``set_weights`` / ``num_parameters``, and ``save_checkpoint`` /
+``load_checkpoint``.
 
 :meth:`FFModel.set_weights` carries weights across frameworks: it takes
 the per-layer ``{layer: {weight: np.ndarray}}`` dictionary that the JAX
 ``FFModel.get_weights()`` returns, and checks every name and shape
 before it writes anything.
 
-The checkpoint writer (:func:`_write_checkpoint_atomic`, with
-:func:`_checkpoint_digest` and :class:`CheckpointError`) is the JAX
-package's: one ``.npz`` written atomically, its manifest and content
-digest inside as ``meta/manifest``.  The digest hashes each array's key,
-dtype string, shape and bytes the same way, so a file written by either
-package verifies in the other.  The serve drain (``ffdrain/1``) and the
-``ffkv/1`` frames use it; ``ffckpt/2`` train checkpoints are not ported
-yet (ROADMAP.md).
+:meth:`FFModel.fit` is the JAX loop's: loader thread, look-ahead
+placement (``dataloader.py``), then the step; metrics stay on the device
+and are read every K steps and at the end of each epoch, one counted
+host sync each (``Executor.host_syncs``).  ``checkpoint_every`` writes a
+checkpoint every K optimizer steps: the host snapshot is one counted
+sync, the file is written on a background thread.  ``resume=`` restores
+weights, moments, the step count (which keys dropout's seeds) and the
+loader's cursor, so a killed and resumed run ends bit for bit where the
+uninterrupted run ends.  ``RecompileState``, ``RecoveryPolicy`` and the
+run-health monitor are not ported: ``fit`` raises ``NotImplementedError``
+when it is given them.
+
+Checkpoints are ``ffckpt/2``: one ``.npz`` written atomically
+(:func:`_write_checkpoint_atomic`), with keys ``params/<layer>/<w>``,
+``opt/<m|v>/<layer>/<w>``, ``opt_scalar/step`` (int32) and
+``meta/step_count``, and a manifest (``meta/manifest``: schema, step,
+rng seed, loader cursor, a null strategy, and a content digest).  The
+digest hashes each array's key, dtype string, shape and bytes as the JAX
+package does, so a file written by either package loads in the other.
+The serve drain (``ffdrain/1``) and the ``ffkv/1`` frames use the same
+writer and digest.
 """
 
 from __future__ import annotations
@@ -27,23 +43,36 @@ from __future__ import annotations
 import hashlib
 import json
 import os
-from typing import Any, Dict, List, Mapping, Optional, Sequence
+import queue
+import threading
+import time
+import zipfile
+from typing import Any, Dict, List, Mapping, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 
 import flexflow_tpu_torch.ops  # noqa: F401  (registers every OpDef)
 from flexflow_tpu_torch.config import FFConfig
+from flexflow_tpu_torch.dataloader import BatchIterator, DevicePrefetcher, SingleDataLoader
 from flexflow_tpu_torch.device import resolve_device
-from flexflow_tpu_torch.fftype import ActiMode, DataType, LossType, MetricsType, OperatorType
+from flexflow_tpu_torch.fftype import (
+    ActiMode, AggrMode, DataType, LossType, MetricsType, OperatorType,
+)
 from flexflow_tpu_torch.initializer import Initializer
-from flexflow_tpu_torch.metrics import Metrics
+from flexflow_tpu_torch.metrics import DeviceMetricAccumulator, Metrics, PerfMetrics
 from flexflow_tpu_torch.ops.base import get_op_def
 from flexflow_tpu_torch.optimizer import Optimizer, SGDOptimizer
 from flexflow_tpu_torch.runtime.executor import Executor
+from flexflow_tpu_torch.runtime.faults import configure_faults_from_config
 from flexflow_tpu_torch.tensor import Layer, Tensor
 
-__all__ = ["FFModel", "CheckpointError"]
+__all__ = ["FFModel", "CheckpointError", "CHECKPOINT_SCHEMA", "DEFAULT_METRICS_SYNC_EVERY"]
+
+# the fit loop's metric flush cadence when metrics_sync_every is 0 (auto)
+DEFAULT_METRICS_SYNC_EVERY = 32
+
+CHECKPOINT_SCHEMA = "ffckpt/2"
 
 
 class CheckpointError(RuntimeError):
@@ -104,13 +133,93 @@ def _write_checkpoint_atomic(path: str, flat: Dict[str, np.ndarray],
     return path
 
 
+class _CheckpointWriter:
+    """One background thread that writes the fit loop's checkpoints off
+    the step path.  The queue holds one snapshot: if the previous write
+    is still running, the next hand-over blocks (backpressure, not an
+    unbounded pile of host copies)."""
+
+    def __init__(self) -> None:
+        self._q: "queue.Queue[Optional[Tuple[str, Dict[str, np.ndarray], Dict[str, Any]]]]" = (
+            queue.Queue(maxsize=1))
+        self._err: Optional[BaseException] = None
+        self._thread = threading.Thread(target=self._loop, name="ffckpt-writer", daemon=True)
+        self._thread.start()
+
+    def _loop(self) -> None:
+        while True:
+            item = self._q.get()
+            try:
+                if item is None:
+                    return
+                _write_checkpoint_atomic(*item)
+            except BaseException as e:  # raised at the next put or flush
+                self._err = e
+            finally:
+                self._q.task_done()
+
+    def _raise_pending(self) -> None:
+        if self._err is not None:
+            err, self._err = self._err, None
+            raise RuntimeError(f"background checkpoint write failed: {err}") from err
+
+    def put(self, path: str, flat: Dict[str, np.ndarray], manifest: Dict[str, Any]) -> None:
+        self._raise_pending()
+        self._q.put((path, flat, manifest))
+
+    def flush(self) -> None:
+        """Block until every queued write is on disk; raise a failed one."""
+        self._q.join()
+        self._raise_pending()
+
+    def close(self) -> None:
+        """Drain, stop the thread, raise a failed write."""
+        self._q.join()
+        self._q.put(None)
+        self._thread.join()
+        self._raise_pending()
+
+    def shutdown(self) -> None:
+        """Drain and stop without raising, for an error path: a failed
+        write must not mask the error that is already on its way out."""
+        try:
+            self._q.join()
+            self._q.put(None)
+            self._thread.join()
+        except BaseException:
+            pass
+
+
+def _host_copies(tensors: Sequence[torch.Tensor]) -> List[np.ndarray]:
+    """Host numpy copies of ``tensors`` (never views of live device or CPU
+    storage), with one host sync: on CUDA each copy is queued into
+    pinned memory without blocking, then the stream is synchronised
+    once."""
+    if not tensors:
+        return []
+    dev = tensors[0].device
+    if dev.type != "cuda":
+        return [t.detach().clone().numpy() for t in tensors]
+    outs = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True) for t in tensors]
+    for o, t in zip(outs, tensors):
+        o.copy_(t.detach(), non_blocking=True)
+    torch.cuda.current_stream(dev).synchronize()
+    return [o.numpy() for o in outs]
+
+
 class FFModel:
     def __init__(self, config: Optional[FFConfig] = None) -> None:
         self.config = config or FFConfig()
+        # the fault plan of --fault-plan; an unset field leaves the
+        # process's current plan alone
+        configure_faults_from_config(self.config)
         self.layers: List[Layer] = []
         self.graph_inputs: List[Tensor] = []
         self._name_counts: Dict[str, int] = {}
         self.executor: Optional[Executor] = None
+        # the loader's position after the most recent fit step: what a
+        # checkpoint's manifest records so that resume replays the batches
+        self._fit_cursor: Optional[Dict[str, Any]] = None
 
     # ------------------------------------------------------------------ util
     def _name(self, base: str, name: Optional[str]) -> str:
@@ -146,6 +255,27 @@ class FFModel:
             OperatorType.LINEAR, self._name("dense", name), [input],
             dict(out_dim=out_dim, activation=activation, use_bias=use_bias,
                  kernel_initializer=kernel_initializer, bias_initializer=bias_initializer),
+        )[0]
+
+    def embedding(self, input: Tensor, num_entries: int, out_dim: int,
+                  aggr: AggrMode = AggrMode.NONE, dtype: DataType = DataType.FLOAT,
+                  kernel_initializer: Optional[Initializer] = None,
+                  name: Optional[str] = None) -> Tensor:
+        return self._add_layer(
+            OperatorType.EMBEDDING, self._name("embedding", name), [input],
+            dict(num_entries=num_entries, out_dim=out_dim, aggr=aggr, dtype=dtype,
+                 kernel_initializer=kernel_initializer),
+        )[0]
+
+    def parameter(self, shape: Sequence[int], dtype: DataType = DataType.FLOAT,
+                  initializer: Optional[Initializer] = None, trainable: bool = True,
+                  name: Optional[str] = None) -> Tensor:
+        """A free trainable tensor with no producing layer (weight
+        ``value``); ``trainable=False`` raises (``ops/parallel_ops.py``)."""
+        return self._add_layer(
+            OperatorType.WEIGHT, self._name("parameter", name), [],
+            dict(shape=tuple(shape), dtype=dtype, initializer=initializer,
+                 trainable=trainable),
         )[0]
 
     def layer_norm(self, input: Tensor, axes: Sequence[int], elementwise_affine: bool = True,
@@ -190,6 +320,11 @@ class FFModel:
     def add(self, x: Tensor, y: Tensor, name: Optional[str] = None) -> Tensor:
         return self._add_layer(OperatorType.EW_ADD, self._name("add", name), [x, y], {})[0]
 
+    def gather(self, data: Tensor, index: Tensor, dim: int = 0,
+               name: Optional[str] = None) -> Tensor:
+        return self._add_layer(OperatorType.GATHER, self._name("gather", name), [data, index],
+                               dict(dim=dim))[0]
+
     # ---------------------------------------------------------------- compile
     def compile(self, optimizer: Optional[Optimizer] = None,
                 loss_type: LossType = LossType.SPARSE_CATEGORICAL_CROSSENTROPY,
@@ -216,15 +351,17 @@ class FFModel:
         return self.executor
 
     def get_weights(self) -> Dict[str, Dict[str, np.ndarray]]:
-        """Host copy of every weight, ``{layer: {weight: np.ndarray}}``."""
+        """Host copy of every weight, ``{layer: {weight: np.ndarray}}``:
+        copies, never views of the live parameters (on the CPU too)."""
         ex = self._require_executor()
-        return {lname: {w: t.detach().cpu().numpy() for w, t in ws.items()}
-                for lname, ws in ex.params.items()}
+        names = ex.param_names()
+        out: Dict[str, Dict[str, np.ndarray]] = {}
+        for (lname, w), arr in zip(names, _host_copies(ex.param_list())):
+            out.setdefault(lname, {})[w] = arr
+        return out
 
-    def set_weights(self, weights: Mapping[str, Mapping[str, Any]]) -> None:
-        """Write every weight from ``{layer: {weight: array}}`` (the JAX
-        ``get_weights()`` layout).  Raises ``ValueError`` on a missing,
-        extra or mis-shaped entry before anything is written."""
+    def _weight_writes(self, weights: Mapping[str, Mapping[str, Any]]):
+        """Check ``weights`` against the model's and return the writes."""
         ex = self._require_executor()
         want = {(l, w): t for l, ws in ex.params.items() for w, t in ws.items()}
         got = {(l, w): np.asarray(a) for l, ws in weights.items() for w, a in ws.items()}
@@ -236,11 +373,313 @@ class FFModel:
             if arr.shape != tuple(want[key].shape):
                 raise ValueError(f"set_weights: {'/'.join(key)} has shape {arr.shape}, the "
                                  f"model expects {tuple(want[key].shape)}")
-        with torch.no_grad():
-            for key, arr in got.items():
-                t = want[key]
-                t.copy_(torch.from_numpy(np.array(arr, np.float32)).to(t.device, t.dtype))
+        return [(want[key], arr) for key, arr in got.items()]
+
+    def set_weights(self, weights: Mapping[str, Mapping[str, Any]]) -> None:
+        """Write every weight from ``{layer: {weight: array}}`` (the JAX
+        ``get_weights()`` layout).  Raises ``ValueError`` on a missing,
+        extra or mis-shaped entry before anything is written."""
+        self._require_executor().apply_writes(self._weight_writes(weights))
 
     def num_parameters(self) -> int:
         ex = self._require_executor()
         return sum(t.numel() for ws in ex.params.values() for t in ws.values())
+
+    # -------------------------------------------------------------- fit
+    def _resolve_metrics_sync_every(self, override: Optional[int] = None) -> int:
+        """K of the K-step metric flush: 1 under ``profiling``, else the
+        explicit value, or ``DEFAULT_METRICS_SYNC_EVERY`` when it is 0."""
+        if self.config.profiling:
+            return 1
+        k = override if override is not None else self.config.metrics_sync_every
+        return int(k) if k and k > 0 else DEFAULT_METRICS_SYNC_EVERY
+
+    def _flush_metrics(self, acc: DeviceMetricAccumulator, pm: PerfMetrics) -> None:
+        """Drain the window's device sums into ``pm``: one counted sync."""
+        if acc.count == 0:
+            return
+        t0 = time.perf_counter()
+        sums, count = acc.drain()
+        self.executor.count_host_sync(1, stall_s=time.perf_counter() - t0)
+        pm.merge_sums(sums, count)
+
+    def fit(self, x: Union[np.ndarray, Sequence[np.ndarray]], y: np.ndarray,
+            batch_size: Optional[int] = None, epochs: Optional[int] = None,
+            verbose: bool = True, shuffle: bool = False, seed: int = 0,
+            recompile_state: Any = None, metrics_sync_every: Optional[int] = None,
+            resume: Optional[str] = None, checkpoint_every: Optional[int] = None,
+            checkpoint_path: Optional[str] = None, recovery: Any = None) -> PerfMetrics:
+        """Train for ``epochs`` epochs over ``(x, y)`` (one array per graph
+        input, then the labels), ``batch_size`` rows a step, a trailing
+        partial batch dropped.  Returns the last epoch's metrics.
+
+        ``shuffle`` reshuffles the rows at every epoch from ``seed`` (the
+        JAX loader's order).  ``resume`` (or ``config.resume_from``)
+        loads a checkpoint and continues from its cursor: it refuses a
+        cursor written with another shuffle, seed or batch count, replays
+        the loader's reshuffles up to the cursor's epoch and skips the
+        batches already trained.  ``checkpoint_every`` /
+        ``checkpoint_path`` (or the config's) write a checkpoint every K
+        optimizer steps on a background thread."""
+        self._require_executor()
+        cfg = self.config
+        if recompile_state is not None:
+            raise NotImplementedError(
+                "fit(recompile_state=...): RecompileState is not ported "
+                "(ROADMAP.md queue A item 3)")
+        if recovery is not None:
+            raise NotImplementedError(
+                "fit(recovery=...): RecoveryPolicy is not ported; elastic recovery needs "
+                "the strategy search (ROADMAP.md queue A item 3, after item 4)")
+        if cfg.health != "off":
+            raise NotImplementedError(
+                f"health={cfg.health!r}: the run-health monitor (obs/health.py, and with it "
+                f"--health restore) is not ported (ROADMAP.md queue A item 6)")
+        if resume is None:
+            resume = cfg.resume_from or None
+        ckpt_every = checkpoint_every if checkpoint_every is not None else cfg.checkpoint_every
+        ckpt_path = checkpoint_path if checkpoint_path is not None else cfg.checkpoint_path
+        if ckpt_path and not ckpt_path.endswith(".npz"):
+            ckpt_path += ".npz"
+        bs = batch_size or cfg.batch_size
+        epochs = epochs or cfg.epochs
+        xs = list(x) if isinstance(x, (list, tuple)) else [x]
+        depth = max(1, cfg.prefetch_depth)
+        loaders = [SingleDataLoader(a, bs, shuffle=shuffle, seed=seed) for a in xs]
+        loaders.append(SingleDataLoader(y, bs, shuffle=shuffle, seed=seed))
+        # one seed for every loader: the same permutation keeps rows aligned
+        it = BatchIterator(loaders, prefetch_depth=depth)
+        nb = it.num_batches
+        if nb == 0:
+            raise ValueError(f"dataset has {len(xs[0])} samples < batch_size {bs}: zero batches")
+        K = self._resolve_metrics_sync_every(metrics_sync_every)
+
+        start_epoch, skip_batches = 0, 0
+        if resume:
+            manifest = self.load_checkpoint(resume)
+            cursor = (manifest or {}).get("loader")
+            if cursor:
+                if (bool(cursor.get("shuffle", False)) != bool(shuffle)
+                        or int(cursor.get("seed", 0)) != int(seed)):
+                    raise CheckpointError(
+                        f"resume {resume!r}: checkpoint was written with "
+                        f"shuffle={cursor.get('shuffle')}/seed={cursor.get('seed')} but fit "
+                        f"was called with shuffle={shuffle}/seed={seed}: the data order "
+                        f"would diverge; pass the original values")
+                if int(cursor.get("batches", nb)) != nb:
+                    raise CheckpointError(
+                        f"resume {resume!r}: checkpoint saw {cursor.get('batches')} "
+                        f"batches/epoch, this fit has {nb}: the dataset or batch size "
+                        f"changed, so the saved cursor does not map onto this run")
+                start_epoch = int(cursor.get("epoch", 0))
+                skip_batches = int(cursor.get("batch", 0))
+                if skip_batches >= nb:  # written after an epoch's last step
+                    start_epoch, skip_batches = start_epoch + 1, 0
+            # replay the reshuffles of the epochs before start_epoch; the
+            # loop below makes the one for start_epoch
+            for _ in range(start_epoch):
+                it.reset()
+
+        writer = (_CheckpointWriter() if (ckpt_every and ckpt_every > 0 and ckpt_path)
+                  else None)
+        prefetch = DevicePrefetcher(it, lambda b: self.executor.place_batch(b), depth=depth)
+        ok = False
+        try:
+            pm = self._fit_loop(prefetch=prefetch, it=it, epochs=epochs, nb=nb, bs=bs, K=K,
+                                verbose=verbose, shuffle=shuffle, seed=seed,
+                                start_epoch=start_epoch, skip_batches=skip_batches,
+                                writer=writer, ckpt_every=ckpt_every, ckpt_path=ckpt_path)
+            ok = True
+        finally:
+            if writer is not None:
+                if ok:
+                    writer.close()
+                else:
+                    writer.shutdown()
+        return pm
+
+    def _fit_loop(self, *, prefetch, it, epochs, nb, bs, K, verbose, shuffle, seed,
+                  start_epoch, skip_batches, writer, ckpt_every, ckpt_path) -> PerfMetrics:
+        """The epoch and batch loops of :meth:`fit`."""
+        ex = self.executor
+        pm = PerfMetrics()
+        loss = None
+        for epoch in range(start_epoch, epochs):
+            it.reset()
+            pm = PerfMetrics()  # per-epoch metrics
+            acc = DeviceMetricAccumulator()
+            for bi, (inputs, labels) in enumerate(prefetch):
+                if epoch == start_epoch and bi < skip_batches:
+                    continue  # trained before the checkpoint: skip, keep the order
+                loss, m = ex.train_step(inputs, labels)
+                # the position after this step, which a checkpoint written
+                # now records
+                self._fit_cursor = {"epoch": epoch, "batch": bi + 1, "shuffle": bool(shuffle),
+                                    "seed": int(seed), "batches": nb}
+                if writer is not None and ex._step_count % ckpt_every == 0:
+                    t0 = time.perf_counter()
+                    flat, manifest = self._snapshot_checkpoint()
+                    ex.count_host_sync(1, stall_s=time.perf_counter() - t0)
+                    writer.put(ckpt_path, flat, manifest)
+                if K <= 1:
+                    t0 = time.perf_counter()
+                    keys = list(m)
+                    vals = torch.stack([loss.reshape(())] + [m[k].reshape(()) for k in keys])
+                    vals = vals.float().cpu().tolist()
+                    ex.count_host_sync(1, stall_s=time.perf_counter() - t0)
+                    pm.update(dict(zip(keys, vals[1:])), bs)
+                    continue
+                acc.add(m, bs)
+                if (bi + 1) % K == 0 or bi + 1 == nb:
+                    self._flush_metrics(acc, pm)
+            if verbose and loss is not None:
+                # the epoch's last flush has already waited for its last step
+                print(f"epoch {epoch}: loss={float(loss):.4f} accuracy={pm.accuracy:.4f} "
+                      f"throughput={pm.throughput():.2f} samples/s")
+        return pm
+
+    def eval(self, x: Union[np.ndarray, Sequence[np.ndarray]], y: np.ndarray,
+             batch_size: Optional[int] = None, verbose: bool = False) -> PerfMetrics:
+        """Loss and metrics with training off over the whole dataset,
+        batch by batch, with one host sync for the pass.  A tail batch
+        shorter than ``batch_size`` is padded to the compiled batch by
+        repeating its last row; only its real rows enter the metrics."""
+        ex = self._require_executor()
+        bs = batch_size or self.config.batch_size
+        xs = [np.asarray(a) for a in (x if isinstance(x, (list, tuple)) else [x])]
+        ya = np.asarray(y)
+        n = xs[0].shape[0]
+        if any(a.shape[0] != n for a in xs) or ya.shape[0] != n:
+            raise ValueError(f"inputs and labels disagree on the sample count: "
+                             f"{[a.shape[0] for a in xs]} against labels {ya.shape[0]}")
+
+        def batches():
+            for start in range(0, n, bs):
+                rows = min(bs, n - start)
+                bx = [a[start:start + rows] for a in xs]
+                if rows < bs:
+                    bx = [np.concatenate([b, np.repeat(b[-1:], bs - rows, axis=0)]) for b in bx]
+                yield bx, ya[start:start + rows], rows
+
+        def place(item):
+            bx, yb, rows = item
+            return ex._place_inputs(bx), ex.place(yb), rows
+
+        pm = PerfMetrics()
+        acc = DeviceMetricAccumulator()
+        prefetch = DevicePrefetcher(batches(), place, depth=max(1, self.config.prefetch_depth))
+        for placed, yb, rows in prefetch:
+            probs = ex.forward(placed)
+            m = ex.metrics.compute(probs[:rows], yb) if ex.metrics else {}
+            acc.add(m, rows)
+        t0 = time.perf_counter()
+        sums, count = acc.drain()
+        ex.count_host_sync(1, stall_s=time.perf_counter() - t0)
+        pm.merge_sums(sums, count)
+        if verbose:
+            print(f"eval: accuracy={pm.accuracy:.4f}")
+        return pm
+
+    def eval_batch(self, x: Sequence[Any]) -> torch.Tensor:
+        """Inference forward (training off) on one batch: the final op's
+        float32 output as a device tensor."""
+        xs = list(x) if isinstance(x, (list, tuple)) else [x]
+        return self._require_executor().forward(xs)
+
+    # ----------------------------------------------------- checkpoints
+    def _snapshot_checkpoint(self) -> Tuple[Dict[str, np.ndarray], Dict[str, Any]]:
+        """Host copy of the training state (one host sync; the caller
+        counts it) and the ``ffckpt/2`` manifest."""
+        ex = self._require_executor()
+        keys: List[str] = []
+        tensors: List[torch.Tensor] = []
+        for lname, ws in ex.params.items():
+            for wname, t in ws.items():
+                keys.append(f"params/{lname}/{wname}")
+                tensors.append(t)
+        named = ex.opt_state_by_name()
+        for slot, tree in named.items():
+            if slot == "step":
+                continue
+            for lname, ws in tree.items():
+                for wname, t in ws.items():
+                    keys.append(f"opt/{slot}/{lname}/{wname}")
+                    tensors.append(t)
+        flat = dict(zip(keys, _host_copies(tensors)))
+        flat["opt_scalar/step"] = np.asarray(named["step"], np.int32)
+        flat["meta/step_count"] = np.asarray(ex._step_count)
+        manifest: Dict[str, Any] = {
+            "schema": CHECKPOINT_SCHEMA,
+            "step": int(ex._step_count),
+            "rng_seed": int(ex.seed),
+            "strategy": None,
+            "loader": dict(self._fit_cursor) if self._fit_cursor else None,
+        }
+        return flat, manifest
+
+    def save_checkpoint(self, path: str) -> str:
+        """Weights, optimizer state, step count and the manifest in one
+        atomically written ``.npz``; returns the path written (``.npz``
+        appended when missing)."""
+        flat, manifest = self._snapshot_checkpoint()
+        return _write_checkpoint_atomic(path, flat, manifest)
+
+    def load_checkpoint(self, path: str) -> Optional[Dict[str, Any]]:
+        """Restore a checkpoint of either package into the compiled model;
+        returns its manifest (``None`` for a manifest-less ``ffckpt/1``
+        file, which has no digest to check).  A torn archive, an
+        unreadable manifest, a digest mismatch or a name or shape that
+        does not fit raise before anything is written."""
+        ex = self._require_executor()
+        try:
+            with np.load(path) as z:
+                flat = {key: np.asarray(z[key]) for key in z.files}
+        except (zipfile.BadZipFile, ValueError, OSError, EOFError) as e:
+            raise CheckpointError(
+                f"checkpoint {path!r} is torn or truncated: the archive is unreadable "
+                f"({type(e).__name__}: {e}); refusing to load") from e
+        manifest: Optional[Dict[str, Any]] = None
+        raw = flat.pop("meta/manifest", None)
+        if raw is not None:
+            try:
+                manifest = json.loads(raw.tobytes().decode())
+            except (UnicodeDecodeError, ValueError) as e:
+                raise CheckpointError(
+                    f"checkpoint {path!r} has an unreadable manifest ({e}); refusing to load"
+                ) from e
+            want, got = manifest.get("digest"), _checkpoint_digest(flat)
+            if want != got:
+                raise CheckpointError(
+                    f"checkpoint {path!r} failed its content-digest check: the manifest "
+                    f"records {want}, the file hashes to {got}; refusing to load")
+        weights: Dict[str, Dict[str, np.ndarray]] = {}
+        opt: Dict[str, Dict[str, Dict[str, np.ndarray]]] = {}
+        step_count, opt_step = None, None
+        for key, arr in flat.items():
+            # a layer name may hold '/', a weight name never does
+            prefix, rest = key.split("/", 1)
+            if prefix == "meta":
+                if rest == "step_count":
+                    step_count = int(arr)
+            elif prefix == "opt_scalar":
+                if rest != "step":
+                    raise CheckpointError(f"checkpoint {path!r}: unknown scalar {key!r}")
+                opt_step = int(arr)
+            elif prefix == "opt":
+                okey, rest = rest.split("/", 1)
+                lname, wname = rest.rsplit("/", 1)
+                opt.setdefault(okey, {}).setdefault(lname, {})[wname] = arr
+            elif prefix == "params":
+                lname, wname = rest.rsplit("/", 1)
+                weights.setdefault(lname, {})[wname] = arr
+            else:
+                raise CheckpointError(f"checkpoint {path!r}: unknown key {key!r}")
+        pending = self._weight_writes(weights)
+        for okey, entries in opt.items():
+            pending += ex.opt_writes(okey, entries)
+        ex.apply_writes(pending)
+        if opt_step is not None:
+            ex.opt_state["step"] = opt_step
+        if step_count is not None:
+            ex._step_count = step_count
+        return manifest

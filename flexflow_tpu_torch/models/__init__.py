@@ -1,4 +1,5 @@
-"""The encoder builder, GPT decoder weights and the shared decode math."""
+"""The encoder and decoder builders, generation, GPT decoder weights and
+the shared decode math."""
 
 from flexflow_tpu_torch.models.gpt_decode import GPTSpec, layer_norm, make_cast
 from flexflow_tpu_torch.models.transformer import (
@@ -7,13 +8,18 @@ from flexflow_tpu_torch.models.transformer import (
     GPT2_MEDIUM,
     GPT2_SMALL,
     GPTDecoder,
+    decoder_layer,
     encoder_layer,
+    gpt_decoder,
+    gpt_generate,
     load_jax_params,
+    sample_next,
     transformer_encoder,
 )
 
 __all__ = [
     "GPTSpec", "layer_norm", "make_cast",
     "BERT_BASE", "BERT_LARGE", "encoder_layer", "transformer_encoder",
-    "GPT2_SMALL", "GPT2_MEDIUM", "GPTDecoder", "load_jax_params",
+    "GPT2_SMALL", "GPT2_MEDIUM", "decoder_layer", "gpt_decoder", "sample_next",
+    "gpt_generate", "GPTDecoder", "load_jax_params",
 ]

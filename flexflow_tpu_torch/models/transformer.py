@@ -1,15 +1,18 @@
-"""The BERT-style encoder builder, GPT decoder weights as an
-``nn.Module``, and the carry from JAX.
+"""The BERT-style encoder and GPT-style decoder builders, generation,
+GPT decoder weights as an ``nn.Module``, and the carry from JAX.
 
 Counterpart of ``flexflow_tpu/models/transformer.py``.
-:func:`transformer_encoder` builds the encoder into an ``FFModel`` with
-the JAX builder's layer names and weight shapes (``enc{i}_attn``,
-``enc{i}_ff0`` ...), so ``FFModel.set_weights(jax_model.get_weights())``
-carries a JAX encoder over.
+:func:`transformer_encoder` and :func:`gpt_decoder` build into an
+``FFModel`` with the JAX builders' layer names and weight shapes
+(``tok_embed``, ``enc{i}_attn``, ``dec{i}_ff0`` ...), so
+``FFModel.set_weights(jax_model.get_weights())`` carries a JAX model
+over.  :func:`sample_next` is the JAX function in numpy, draw for draw,
+so :func:`gpt_generate` (a full-prefix forward per new token through
+``FFModel.eval_batch``) gives the JAX package's tokens for a seed.
 
-For the decoder (``gpt_decoder``):
-:class:`GPTDecoder` holds exactly the parameters that ``gpt_decoder`` +
-``FFModel.compile`` create, under the same names and shapes
+For serving: :class:`GPTDecoder` holds exactly the parameters that
+``gpt_decoder`` + ``FFModel.compile`` create, under the same names and
+shapes
 (``tok_embed.kernel``, ``pos_embed.value``, ``dec{i}_ln0.scale``,
 ``dec{i}_attn.wq`` ...).  Dense kernels keep the JAX ``(in, out)``
 layout and are applied as ``x @ w``, so :func:`load_jax_params` copies
@@ -17,7 +20,8 @@ the JAX package's ``model.executor.params`` leaf for leaf with no
 transposes.
 
 The module is the parameter container the serve programs
-(:mod:`flexflow_tpu_torch.serve.engine`) read.
+(:mod:`flexflow_tpu_torch.serve.engine`) read; ``load_jax_params(decoder,
+model.get_weights())`` serves the weights a port ``gpt_decoder`` trained.
 """
 
 from __future__ import annotations
@@ -29,7 +33,7 @@ import torch
 from torch import nn
 
 from flexflow_tpu_torch.device import DEFAULT_DEVICE, resolve_device
-from flexflow_tpu_torch.fftype import ActiMode
+from flexflow_tpu_torch.fftype import ActiMode, DataType
 from flexflow_tpu_torch.initializer import (
     GlorotUniform,
     NormInitializer,
@@ -42,7 +46,8 @@ from flexflow_tpu_torch.tensor import Tensor
 
 __all__ = [
     "BERT_BASE", "BERT_LARGE", "encoder_layer", "transformer_encoder",
-    "GPT2_SMALL", "GPT2_MEDIUM", "GPTDecoder", "load_jax_params",
+    "GPT2_SMALL", "GPT2_MEDIUM", "decoder_layer", "gpt_decoder", "sample_next",
+    "gpt_generate", "GPTDecoder", "load_jax_params",
 ]
 
 BERT_BASE = dict(hidden=768, heads=12, ff_dim=3072, num_layers=12)
@@ -93,17 +98,19 @@ def transformer_encoder(
     use_flash: bool = True,
     raw_input: bool = False,
 ) -> Tensor:
-    """Build the encoder into ``model`` from a (batch, seq, hidden) input
-    ``embeddings``; returns the softmax output of the pooled classifier
-    (``num_classes``) or of the LM head over ``vocab``, flattened to
-    (batch * seq, vocab).  The token-embedding front end
-    (``raw_input=False``) needs ``ops/embedding.py``, which is not
-    ported, and raises."""
-    if not raw_input:
-        raise NotImplementedError(
-            "transformer_encoder(raw_input=False) needs the token embedding "
-            "(ops/embedding.py), which is not ported; pass raw_input=True")
-    t = model.create_tensor((batch, seq, hidden), name="embeddings")
+    """Build the encoder into ``model``; returns the softmax output of the
+    pooled classifier (``num_classes``) or of the LM head over ``vocab``,
+    flattened to (batch * seq, vocab).  The inputs are int32
+    ``token_ids`` (batch, seq) and a float ``pos_embed`` (batch, seq,
+    hidden) added to the token rows (``tok_embed``), or with
+    ``raw_input=True`` one (batch, seq, hidden) input ``embeddings``."""
+    if raw_input:
+        t = model.create_tensor((batch, seq, hidden), name="embeddings")
+    else:
+        ids = model.create_tensor((batch, seq), DataType.INT32, name="token_ids")
+        t = model.embedding(ids, vocab, hidden, name="tok_embed")
+        pos = model.create_tensor((batch, seq, hidden), name="pos_embed")
+        t = model.add(t, pos, name="embed_add")
     for i in range(num_layers):
         t = encoder_layer(
             model, t, hidden, heads, ff_dim, dropout, causal, use_flash, name=f"enc{i}"
@@ -116,6 +123,117 @@ def transformer_encoder(
     t = model.dense(t, vocab, name="lm_head")
     t = model.reshape(t, (batch * seq, vocab), name="lm_flatten")
     return model.softmax(t, name="lm_softmax")
+
+
+def decoder_layer(
+    model: FFModel,
+    t: Tensor,
+    hidden: int,
+    heads: int,
+    ff_dim: int,
+    dropout: float = 0.0,
+    use_flash: bool = True,
+    name: str = "dec",
+) -> Tensor:
+    """Pre-LN causal decoder block (GPT-2 style): ln -> causal attention ->
+    residual, ln -> FFN (GELU) -> residual."""
+    h = model.layer_norm(t, axes=[-1], name=f"{name}_ln0")
+    attn = model.multihead_attention(
+        h, h, h, hidden, heads, dropout=dropout, causal=True,
+        use_flash=use_flash, name=f"{name}_attn",
+    )
+    t = model.add(attn, t, name=f"{name}_res0")
+    h = model.layer_norm(t, axes=[-1], name=f"{name}_ln1")
+    ff = model.dense(h, ff_dim, ActiMode.GELU, name=f"{name}_ff0")
+    ff = model.dense(ff, hidden, name=f"{name}_ff1")
+    if dropout > 0.0:
+        ff = model.dropout(ff, dropout, name=f"{name}_drop")
+    return model.add(ff, t, name=f"{name}_res1")
+
+
+def gpt_decoder(
+    model: FFModel,
+    batch: int,
+    seq: int,
+    hidden: int = 768,
+    heads: int = 12,
+    ff_dim: int = 3072,
+    num_layers: int = 12,
+    vocab: int = 50257,
+    dropout: float = 0.0,
+    use_flash: bool = True,
+) -> Tensor:
+    """Causal LM (GPT-2 style): token embedding plus a learned (seq,
+    hidden) position parameter, pre-LN causal blocks, a final layer norm
+    and an LM head without bias; returns the next-token softmax as
+    (batch * seq, vocab)."""
+    ids = model.create_tensor((batch, seq), DataType.INT32, name="token_ids")
+    t = model.embedding(ids, vocab, hidden, name="tok_embed")
+    pos = model.parameter((seq, hidden), name="pos_embed")
+    t = model.add(t, pos, name="embed_add")  # (B, S, H) + (S, H)
+    for i in range(num_layers):
+        t = decoder_layer(model, t, hidden, heads, ff_dim, dropout, use_flash, name=f"dec{i}")
+    t = model.layer_norm(t, axes=[-1], name="final_ln")
+    t = model.dense(t, vocab, use_bias=False, name="lm_head")
+    t = model.reshape(t, (batch * seq, vocab), name="lm_flatten")
+    return model.softmax(t, name="lm_softmax")
+
+
+def sample_next(probs: np.ndarray, temperature: float, rng: np.random.Generator,
+                top_k: int = 0, top_p: float = 1.0) -> np.ndarray:
+    """Next tokens from (batch, vocab) probabilities: greedy at
+    temperature 0, else temperature-scaled sampling with ``rng``,
+    optionally cut to the ``top_k`` most likely tokens and to the
+    smallest ``top_p`` nucleus (the first token always kept).  The JAX
+    function's arithmetic (float64) and draws, so a seed gives the same
+    tokens in both packages."""
+    if temperature <= 0.0:
+        return probs.argmax(-1).astype(np.int32)
+    logp = np.log(np.maximum(probs.astype(np.float64), 1e-30)) / temperature
+    z = np.exp(logp - logp.max(-1, keepdims=True))
+    z /= z.sum(-1, keepdims=True)
+    if top_k and top_k < z.shape[-1]:
+        kth = np.sort(z, axis=-1)[:, -top_k][:, None]
+        z = np.where(z >= kth, z, 0.0)
+        z /= z.sum(-1, keepdims=True)
+    if top_p < 1.0:
+        order = np.argsort(-z, axis=-1)
+        sorted_z = np.take_along_axis(z, order, axis=-1)
+        cum = np.cumsum(sorted_z, axis=-1)
+        keep_sorted = cum - sorted_z < top_p
+        keep = np.zeros_like(z, dtype=bool)
+        np.put_along_axis(keep, order, keep_sorted, axis=-1)
+        z = np.where(keep, z, 0.0)
+        z /= z.sum(-1, keepdims=True)
+    return np.array([rng.choice(z.shape[-1], p=z[b]) for b in range(z.shape[0])], np.int32)
+
+
+def gpt_generate(model: FFModel, prompt_ids, max_new_tokens: int, temperature: float = 0.0,
+                 seed: int = 0, top_k: int = 0, top_p: float = 1.0) -> np.ndarray:
+    """Decode from a compiled :func:`gpt_decoder` model by re-running the
+    full-prefix forward for each new token (one fixed-shape forward: the
+    causal mask keeps every position < t blind to what lies beyond t).
+    ``prompt_ids``: (batch, prompt_len) ints, prompt_len >= 1.  Returns
+    (batch, prompt_len + max_new_tokens) ids; only the row each step
+    reads leaves the device."""
+    batch, seq = model.graph_inputs[0].shape
+    p = np.asarray(prompt_ids, np.int32)
+    if p.ndim != 2 or p.shape[0] != batch:
+        raise ValueError(f"prompt_ids has shape {p.shape}; expected ({batch}, prompt_len)")
+    start, end = p.shape[1], p.shape[1] + max_new_tokens
+    if not 1 <= start <= seq:
+        raise ValueError(f"prompt length {start} is outside [1, {seq}]")
+    if end > seq:
+        raise ValueError(f"prompt_len + max_new_tokens = {end} exceeds the compiled sequence "
+                         f"length {seq}; rebuild gpt_decoder with a longer seq")
+    cur = np.zeros((batch, seq), np.int32)
+    cur[:, :start] = p
+    rng = np.random.default_rng(seed)
+    for t in range(start, end):
+        probs = model.eval_batch([cur]).reshape(batch, seq, -1)[:, t - 1]
+        cur[:, t] = sample_next(probs.cpu().numpy(), temperature, rng, top_k=top_k,
+                                top_p=top_p)
+    return cur[:, :end]
 
 
 class _Leaves(nn.Module):

@@ -1,7 +1,10 @@
 """The residual ``add``.
 
 Counterpart of ``flexflow_tpu/ops/elementwise.py`` ``ElementBinary`` for
-the one elementwise op the encoder builds; it broadcasts like numpy.
+the one elementwise op the encoder and decoder build; it broadcasts like
+numpy (``gpt_decoder``'s ``embed_add`` adds a (seq, hidden) position
+table to (batch, seq, hidden) token rows; autograd sums the table's
+gradient over the batch).
 """
 
 from __future__ import annotations

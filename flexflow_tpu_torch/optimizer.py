@@ -14,18 +14,21 @@ The JAX optimizers return new pytrees; these update the parameters and
 the moments in place (``torch._foreach_*``, under ``torch.no_grad()``),
 which keeps one copy of each in memory.  ``params`` and ``grads`` are
 lists of tensors in one fixed order; the state holds the step count and
-the moments in that order.
+the moments in that order (the update's working form).
+:func:`state_by_name` gives the same state in the JAX layout,
+``{"step": int, "m": {layer: {weight: tensor}}, "v": ...}``, which the
+``ffckpt/2`` checkpoints write and load.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, List
+from typing import Any, Dict, List, Sequence, Tuple
 
 import numpy as np
 import torch
 
-__all__ = ["Optimizer", "SGDOptimizer", "AdamOptimizer"]
+__all__ = ["Optimizer", "SGDOptimizer", "AdamOptimizer", "state_by_name"]
 
 
 class Optimizer:
@@ -35,6 +38,21 @@ class Optimizer:
     def update(self, params: List[torch.Tensor], grads: List[torch.Tensor],
                state: Dict[str, Any]) -> None:
         raise NotImplementedError
+
+
+def state_by_name(state: Dict[str, Any], names: Sequence[Tuple[str, str]]) -> Dict[str, Any]:
+    """``state`` in the JAX layout: the step, and each slot as
+    ``{layer: {weight: tensor}}`` for ``names``, the ``(layer, weight)``
+    of every parameter in the update's order.  The tensors are the
+    state's own, not copies."""
+    out: Dict[str, Any] = {"step": int(state["step"])}
+    for slot, tensors in state.items():
+        if isinstance(tensors, list):  # a per-parameter slot ("m", "v")
+            tree: Dict[str, Dict[str, torch.Tensor]] = {}
+            for (layer, w), t in zip(names, tensors):
+                tree.setdefault(layer, {})[w] = t
+            out[slot] = tree
+    return out
 
 
 def _decayed(params, grads, wd: float):

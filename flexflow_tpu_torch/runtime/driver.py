@@ -1,16 +1,33 @@
-"""``python -m flexflow_tpu_torch --train [flags]``: the encoder train driver.
+"""``python -m flexflow_tpu_torch --train [flags]``: the train drivers.
 
-Counterpart of ``examples/transformer/bert.py`` and of the ``bench.py``
-``run_bench`` main path: build ``transformer_encoder`` (raw
-(batch, seq, hidden) input, pooled classifier), compile with Adam and
-sparse categorical cross-entropy, and take ``--steps`` steps on one
-seeded numpy batch.  Prints one JSON line: the loss of every step,
-samples/s and the median step time over the steps after the first, the
-flash-kernel launches, and the device.
+Three modes, each printing one JSON line with the flash-kernel launches
+and the device:
 
-The defaults are BERT-Base at seq 512, batch 16, 64 classes, on
-``--device cuda``.  ``--device cpu`` runs the plain PyTorch path (pass
-small widths there); without a CUDA device the default raises.
+* default: the ``bench.py`` ``run_bench`` main path.  Build
+  ``transformer_encoder`` (raw (batch, seq, hidden) input, pooled
+  classifier), compile with Adam and sparse categorical cross-entropy,
+  and take ``--steps`` steps on one seeded numpy batch: the loss of
+  every step, samples/s and the median step time over the steps after
+  the first.
+* ``--fit``: the encoder on tokens (``token_ids`` and a sinusoidal
+  ``pos_embed`` input, ``--vocab`` 30522), trained by ``FFModel.fit``
+  for ``--epochs`` over ``--samples`` seeded samples, then
+  ``FFModel.eval`` over ``--eval-samples`` more: the last epoch's
+  metrics, the eval's, host syncs and the seconds the host waited in
+  them, and with ``--checkpoint-every`` / ``--checkpoint-path`` /
+  ``--resume`` / ``--fault-plan`` the checkpoint and resume path (an
+  injected fault ends the run with its error after the line is
+  printed).  ``--profiling`` flushes the metrics every step; a
+  ``--health`` mode other than ``off`` raises ``NotImplementedError``
+  (the run-health monitor is not ported).
+* ``--model gpt2``: ``gpt_decoder`` through ``FFModel`` (GPT-2 small,
+  ``--vocab`` 50257, batch 4, seq 1024), ``--steps`` train steps on
+  next-token labels of a stride-3 cycle as ``examples/gpt/gpt.py`` takes
+  them, then ``--generate N`` greedy tokens by ``gpt_generate``.
+
+The defaults are BERT-Base widths on ``--device cuda``.  ``--device cpu``
+runs the plain PyTorch path (pass small widths there); without a CUDA
+device the default raises.
 """
 
 from __future__ import annotations
@@ -19,7 +36,7 @@ import argparse
 import json
 import statistics
 import time
-from typing import List, Optional
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -28,29 +45,37 @@ from flexflow_tpu_torch.config import FFConfig
 from flexflow_tpu_torch.device import DEFAULT_DEVICE, resolve_device
 from flexflow_tpu_torch.fftype import LossType, MetricsType
 from flexflow_tpu_torch.model import FFModel
-from flexflow_tpu_torch.models.transformer import BERT_BASE, transformer_encoder
+from flexflow_tpu_torch.models.transformer import (
+    BERT_BASE, GPT2_SMALL, gpt_decoder, gpt_generate, transformer_encoder,
+)
 from flexflow_tpu_torch.ops.cuda import flash_attention as fa
 from flexflow_tpu_torch.optimizer import AdamOptimizer
+from flexflow_tpu_torch.runtime.faults import InjectedFault
 
-__all__ = ["build_model", "make_batch", "run", "main"]
+__all__ = ["FIT_METRICS", "build_model", "make_batch", "run", "make_token_data", "build_gpt",
+           "make_gpt_batches", "main"]
 
 LR = 1e-4  # Adam's alpha, as in run_bench
 SEED = 0
+FIT_METRICS = (MetricsType.ACCURACY, MetricsType.SPARSE_CATEGORICAL_CROSSENTROPY)
 
 
 def build_model(*, batch: int, seq: int, hidden: int, heads: int, ff_dim: int, num_layers: int,
                 num_classes: int, compute_dtype: str, lr: float, use_flash: bool, seed: int,
-                device) -> FFModel:
-    """The encoder compiled with Adam(alpha=lr) and sparse CCE, weights
-    drawn from ``seed``."""
+                device, vocab: Optional[int] = None,
+                metrics: Sequence[MetricsType] = (MetricsType.ACCURACY,), **config) -> FFModel:
+    """The encoder compiled with Adam(alpha=lr), sparse CCE and
+    ``metrics``, weights drawn from ``seed``: on raw (batch, seq, hidden)
+    inputs, or on tokens when ``vocab`` is given.  ``config`` sets
+    further ``FFConfig`` fields."""
     model = FFModel(FFConfig(batch_size=batch, compute_dtype=compute_dtype, seed=seed,
-                             device=str(device)))
+                             device=str(device), **config))
     transformer_encoder(model, batch=batch, seq=seq, hidden=hidden, heads=heads, ff_dim=ff_dim,
                         num_layers=num_layers, num_classes=num_classes, use_flash=use_flash,
-                        raw_input=True)
+                        raw_input=vocab is None, **({"vocab": vocab} if vocab else {}))
     model.compile(optimizer=AdamOptimizer(alpha=lr),
                   loss_type=LossType.SPARSE_CATEGORICAL_CROSSENTROPY,
-                  metrics=[MetricsType.ACCURACY])
+                  metrics=list(metrics))
     return model
 
 
@@ -61,6 +86,48 @@ def make_batch(batch: int, seq: int, hidden: int, num_classes: int, seed: int):
     x = rng.normal(size=(batch, seq, hidden)).astype(np.float32)
     y = rng.integers(0, num_classes, size=(batch, 1)).astype(np.int32)
     return x, y
+
+
+def make_token_data(n: int, seq: int, hidden: int, vocab: int, num_classes: int, seed: int
+                    ) -> Tuple[List[np.ndarray], np.ndarray]:
+    """``n`` samples for the encoder on tokens: uniform token ids, the
+    sinusoidal position table as every sample's ``pos_embed`` (a
+    broadcast view: one table in memory), uniform labels (n, 1)."""
+    rng = np.random.default_rng(seed)
+    ids = rng.integers(0, vocab, size=(n, seq)).astype(np.int32)
+    y = rng.integers(0, num_classes, size=(n, 1)).astype(np.int32)
+    pos = np.arange(seq)[:, None] / np.power(10000.0, (np.arange(hidden) // 2 * 2) / hidden)
+    table = np.where(np.arange(hidden) % 2 == 0, np.sin(pos), np.cos(pos)).astype(np.float32)
+    return [ids, np.broadcast_to(table, (n, seq, hidden))], y
+
+
+def build_gpt(*, batch: int, seq: int, hidden: int, heads: int, ff_dim: int, num_layers: int,
+              vocab: int, compute_dtype: str, lr: float, use_flash: bool, seed: int,
+              device) -> FFModel:
+    """``gpt_decoder`` compiled with Adam(alpha=lr) and sparse CCE over
+    every position, weights drawn from ``seed``."""
+    model = FFModel(FFConfig(batch_size=batch, compute_dtype=compute_dtype, seed=seed,
+                             device=str(device)))
+    gpt_decoder(model, batch, seq, hidden=hidden, heads=heads, ff_dim=ff_dim,
+                num_layers=num_layers, vocab=vocab, use_flash=use_flash)
+    model.compile(optimizer=AdamOptimizer(alpha=lr),
+                  loss_type=LossType.SPARSE_CATEGORICAL_CROSSENTROPY)
+    return model
+
+
+def make_gpt_batches(steps: int, batch: int, seq: int, vocab: int, seed: int
+                     ) -> List[Tuple[np.ndarray, np.ndarray]]:
+    """One (ids, labels) batch per step, as ``examples/gpt/gpt.py`` makes
+    them: each row a stride-3 cycle from a random start, the label of
+    every position the next token, labels flattened to (batch * seq, 1)."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(steps):
+        starts = rng.integers(0, vocab, size=batch)
+        ids = (starts[:, None] + np.arange(seq)[None, :] * 3) % vocab
+        y = np.roll(ids, -1, axis=1).reshape(batch * seq, 1)
+        out.append((ids.astype(np.int32), y.astype(np.int32)))
+    return out
 
 
 def run(model: FFModel, x, y, steps: int) -> dict:
@@ -90,40 +157,164 @@ def run(model: FFModel, x, y, steps: int) -> dict:
     }
 
 
+def _widths(a, base) -> dict:
+    cfg = dict(base)
+    for key, val in (("hidden", a.hidden), ("heads", a.heads), ("ff_dim", a.ff_dim),
+                     ("num_layers", a.layers)):
+        if val is not None:
+            cfg[key] = val
+    return cfg
+
+
+def _device_name(dev) -> str:
+    return torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
+
+
+def _fit_main(a, dev) -> int:
+    """``--fit``: the encoder on tokens through ``fit`` and ``eval``."""
+    cfg = _widths(a, BERT_BASE)
+    vocab = a.vocab or 30522
+    config = dict(checkpoint_every=a.checkpoint_every, checkpoint_path=a.checkpoint_path,
+                  resume_from=a.resume, fault_plan=a.fault_plan, profiling=a.profiling,
+                  health=a.health)
+    model = build_model(batch=a.batch, seq=a.seq, num_classes=a.classes, vocab=vocab,
+                        compute_dtype=a.compute_dtype, lr=LR, use_flash=True, seed=SEED,
+                        device=dev, metrics=FIT_METRICS, **config, **cfg)
+    xs, y = make_token_data(a.samples + a.eval_samples, a.seq, cfg["hidden"], vocab, a.classes,
+                            SEED)
+    n = a.samples
+    for k in fa.LAUNCHES:
+        fa.LAUNCHES[k] = 0
+    ex = model.executor
+    rec = {**cfg, "vocab": vocab, "batch": a.batch, "seq": a.seq, "classes": a.classes,
+           "compute_dtype": a.compute_dtype, "epochs": a.epochs, "samples": n,
+           "shuffle": a.shuffle, "fault_plan": a.fault_plan, "resume": a.resume,
+           "checkpoint_every": a.checkpoint_every}
+    step0 = ex._step_count
+    if a.resume:  # the steps before the checkpoint are not this run's
+        with np.load(a.resume) as z:
+            step0 = json.loads(z["meta/manifest"].tobytes().decode())["step"]
+    t0 = time.perf_counter()
+    fault = None
+    try:
+        pm = model.fit([v[:n] for v in xs], y[:n], epochs=a.epochs, shuffle=a.shuffle,
+                       verbose=False)
+    except InjectedFault as e:
+        fault, pm = str(e), None
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    wall = time.perf_counter() - t0
+    steps = ex._step_count - step0
+    rec.update({"steps": steps, "step_count": ex._step_count, "fit_s": wall,
+                "step_ms_mean": wall / max(1, steps) * 1e3, "host_syncs": ex.host_syncs,
+                "host_stall_s": ex.host_stall_s, "fault": fault})
+    if pm is not None:
+        rec.update({"loss": pm.sparse_cce_loss / max(1, pm.train_all),
+                    "accuracy": pm.accuracy, "epoch_samples": pm.train_all})
+        if a.eval_samples:
+            syncs = ex.host_syncs
+            pe = model.eval([v[n:] for v in xs], y[n:])
+            rec.update({"eval_loss": pe.sparse_cce_loss / max(1, pe.train_all),
+                        "eval_accuracy": pe.accuracy, "eval_samples": pe.train_all,
+                        "eval_host_syncs": ex.host_syncs - syncs})
+    rec.update({"parameters": model.num_parameters(), "flash_launches": dict(fa.LAUNCHES),
+                "device": str(dev), "device_name": _device_name(dev)})
+    print(json.dumps(rec), flush=True)
+    return 1 if fault else 0
+
+
+def _gpt_main(a, dev) -> int:
+    """``--model gpt2``: ``gpt_decoder`` train steps, then greedy tokens."""
+    cfg = _widths(a, GPT2_SMALL)
+    vocab = a.vocab or 50257
+    batch, seq = a.batch or 4, a.seq or 1024
+    model = build_gpt(batch=batch, seq=seq, vocab=vocab, compute_dtype=a.compute_dtype, lr=LR,
+                      use_flash=True, seed=SEED, device=dev, **cfg)
+    batches = make_gpt_batches(a.steps, batch, seq, vocab, SEED)
+    for k in fa.LAUNCHES:
+        fa.LAUNCHES[k] = 0
+    ex = model.executor
+    losses, times = [], []
+    for ids, y in batches:
+        t0 = time.perf_counter()
+        loss, _ = ex.train_step([ids], y)
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        times.append(time.perf_counter() - t0)
+        losses.append(loss)
+    train_launches = dict(fa.LAUNCHES)
+    rec = {**cfg, "model": "gpt2", "vocab": vocab, "batch": batch, "seq": seq,
+           "compute_dtype": a.compute_dtype, "steps": a.steps,
+           "losses": [float(v) for v in torch.stack(losses).cpu()] if losses else [],
+           "step_ms": [t * 1e3 for t in times], "flash_launches": train_launches}
+    if a.generate:
+        prompt_len = min(8, seq - a.generate)
+        prompt = make_gpt_batches(1, batch, seq, vocab, SEED + 1)[0][0][:, :prompt_len]
+        t0 = time.perf_counter()
+        out = gpt_generate(model, prompt, a.generate)
+        rec.update({"prompt_len": prompt_len, "generated": out[:, prompt_len:].tolist(),
+                    "generate_s": time.perf_counter() - t0})
+    rec.update({"parameters": model.num_parameters(), "device": str(dev),
+                "device_name": _device_name(dev)})
+    print(json.dumps(rec), flush=True)
+    return 0
+
+
 def main(argv: Optional[List[str]] = None) -> int:
     p = argparse.ArgumentParser(prog="python -m flexflow_tpu_torch --train")
     p.add_argument("--device", default=DEFAULT_DEVICE)
-    p.add_argument("--hidden", type=int, help="override BERT-Base's width")
+    p.add_argument("--model", choices=("bert", "gpt2"), default="bert")
+    p.add_argument("--fit", action="store_true",
+                   help="the encoder on tokens through FFModel.fit and eval")
+    p.add_argument("--hidden", type=int, help="override the model's width")
     p.add_argument("--heads", type=int)
     p.add_argument("--ff-dim", type=int)
     p.add_argument("--layers", type=int)
-    p.add_argument("--batch", type=int, default=16)
-    p.add_argument("--seq", type=int, default=512)
+    p.add_argument("--vocab", type=int, help="tokens: 30522 (--fit) or 50257 (gpt2)")
+    p.add_argument("--batch", type=int, help="16, or 4 for gpt2")
+    p.add_argument("--seq", type=int, help="512, or 1024 for gpt2")
     p.add_argument("--classes", type=int, default=64)
-    p.add_argument("--steps", type=int, default=5)
+    p.add_argument("--steps", type=int, help="5, or 3 for gpt2")
     p.add_argument("--compute-dtype", choices=("float32", "bfloat16"), default="float32")
+    p.add_argument("--epochs", type=int, default=2)
+    p.add_argument("--samples", type=int, default=160)
+    p.add_argument("--eval-samples", type=int, default=40)
+    p.add_argument("--shuffle", action="store_true")
+    p.add_argument("--checkpoint-every", type=int, default=0)
+    p.add_argument("--checkpoint-path")
+    p.add_argument("--resume")
+    p.add_argument("--fault-plan")
+    p.add_argument("--profiling", action="store_true",
+                   help="--fit: flush the metrics after every step (K = 1)")
+    p.add_argument("--health", choices=("off", "warn", "dump", "raise", "restore"),
+                   default="off", help="--fit: the run-health monitor is not ported; "
+                   "any mode but off raises NotImplementedError")
+    p.add_argument("--generate", type=int, default=0, help="gpt2: greedy tokens after training")
     a = p.parse_args(argv)
 
     dev = resolve_device(a.device)
     if dev.type == "cuda":
         torch.backends.cuda.matmul.allow_tf32 = False
-    cfg = dict(BERT_BASE)
-    for key, val in (("hidden", a.hidden), ("heads", a.heads), ("ff_dim", a.ff_dim),
-                     ("num_layers", a.layers)):
-        if val is not None:
-            cfg[key] = val
+    if a.model == "gpt2":
+        if a.steps is None:
+            a.steps = 3
+        return _gpt_main(a, dev)
+    a.batch, a.seq = a.batch or 16, a.seq or 512
+    if a.fit:
+        return _fit_main(a, dev)
+    steps = 5 if a.steps is None else a.steps
+    cfg = _widths(a, BERT_BASE)
     model = build_model(batch=a.batch, seq=a.seq, num_classes=a.classes,
                         compute_dtype=a.compute_dtype, lr=LR, use_flash=True, seed=SEED,
                         device=dev, **cfg)
     x, y = make_batch(a.batch, a.seq, cfg["hidden"], a.classes, SEED)
     for k in fa.LAUNCHES:
         fa.LAUNCHES[k] = 0
-    res = run(model, x, y, a.steps)
+    res = run(model, x, y, steps)
     print(json.dumps({
         **cfg, "batch": a.batch, "seq": a.seq, "classes": a.classes,
-        "compute_dtype": a.compute_dtype, "steps": a.steps,
+        "compute_dtype": a.compute_dtype, "steps": steps,
         **res, "parameters": model.num_parameters(), "flash_launches": dict(fa.LAUNCHES),
-        "device": str(dev),
-        "device_name": torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu",
+        "device": str(dev), "device_name": _device_name(dev),
     }), flush=True)
     return 0

@@ -20,7 +20,12 @@ to float32 before the loss.
 
 :meth:`Executor.train_step` returns the loss and the metrics as device
 tensors and makes no host sync: a numpy batch is staged through pinned
-memory and copied without blocking, and nothing is read back.
+memory and copied without blocking, and nothing is read back.  The
+loops above it (``FFModel.fit`` and ``eval``) sync on purpose, and count
+each sync with :meth:`Executor.count_host_sync` (``host_syncs``).  The
+fault plan's fit-site hook runs at the top of ``train_step``, keyed on
+the step count, so a ``device_loss`` at step N raises before step N
+changes anything.
 """
 
 from __future__ import annotations
@@ -35,7 +40,8 @@ from flexflow_tpu_torch.fftype import LossType
 from flexflow_tpu_torch.loss import get_loss_fn
 from flexflow_tpu_torch.metrics import Metrics
 from flexflow_tpu_torch.ops.base import OpContext, get_op_def
-from flexflow_tpu_torch.optimizer import Optimizer
+from flexflow_tpu_torch.optimizer import Optimizer, state_by_name
+from flexflow_tpu_torch.runtime.faults import get_fault_plan
 from flexflow_tpu_torch.tensor import Layer, Tensor
 
 __all__ = ["Executor"]
@@ -75,6 +81,11 @@ class Executor:
         self._step_count = 0
         self.params: Dict[str, Dict[str, torch.Tensor]] = {}
         self.opt_state: Any = None
+        # deliberate host syncs of the fit/eval loops, and the seconds
+        # the host spent blocked in them
+        self.host_syncs = 0
+        self.host_stall_s = 0.0
+        self.dcn_degraded = False  # set by a dcn_degrade fault
 
     # --- parameters --------------------------------------------------------
     def init_params(self) -> None:
@@ -92,6 +103,42 @@ class Executor:
     def param_list(self) -> List[torch.Tensor]:
         """Trainable parameters in layer order (the optimizer's order)."""
         return [t for ws in self.params.values() for t in ws.values()]
+
+    def param_names(self) -> List[Tuple[str, str]]:
+        """``(layer, weight)`` of each parameter, in :meth:`param_list`'s order."""
+        return [(l, w) for l, ws in self.params.items() for w in ws]
+
+    def opt_state_by_name(self) -> Dict[str, Any]:
+        """The optimizer state in the JAX layout (``optimizer.state_by_name``)."""
+        return state_by_name(self.opt_state, self.param_names())
+
+    def opt_writes(self, okey: str, entries: Dict[str, Dict[str, Any]]
+                   ) -> List[Tuple[torch.Tensor, np.ndarray]]:
+        """Check ``{layer: {weight: array}}`` against optimizer slot
+        ``okey`` ("m", "v") and return the ``(tensor, array)`` writes,
+        writing nothing; :meth:`apply_writes` applies them."""
+        tree = self.opt_state_by_name().get(okey)
+        if not isinstance(tree, dict):
+            raise KeyError(f"no optimizer slot {okey!r}")
+        pending = []
+        for lname, ws in entries.items():
+            for wname, arr in ws.items():
+                cur = tree.get(lname, {}).get(wname)
+                if cur is None:
+                    raise KeyError(f"unknown opt entry {okey}/{lname}/{wname}")
+                a = np.asarray(arr)
+                if a.shape != tuple(cur.shape):
+                    raise ValueError(f"opt {okey}/{lname}/{wname}: shape {a.shape} != "
+                                     f"{tuple(cur.shape)}")
+                pending.append((cur, a))
+        return pending
+
+    @staticmethod
+    def apply_writes(pending: Sequence[Tuple[torch.Tensor, np.ndarray]]) -> None:
+        """Copy each host array into its tensor, in place."""
+        with torch.no_grad():
+            for t, a in pending:
+                t.copy_(torch.from_numpy(np.array(a, np.float32)).to(t.device, t.dtype))
 
     # --- forward -----------------------------------------------------------
     def _cast_compute(self, x: torch.Tensor) -> torch.Tensor:
@@ -132,7 +179,9 @@ class Executor:
         blocking the host."""
         if isinstance(x, torch.Tensor) and x.device == self.device:
             return x if dtype is None else x.to(dtype)
-        t = torch.as_tensor(np.asarray(x) if not isinstance(x, torch.Tensor) else x)
+        # a read-only or strided host array (a broadcast view) is copied
+        t = x if isinstance(x, torch.Tensor) else torch.from_numpy(
+            np.require(x, requirements=("C", "W")))
         if dtype is not None:
             t = t.to(dtype)
         if self.device.type == "cuda":
@@ -142,11 +191,27 @@ class Executor:
     def _place_inputs(self, inputs: Sequence[Any]) -> List[torch.Tensor]:
         return [self.place(x, t.dtype.to_torch()) for x, t in zip(inputs, self.graph_inputs)]
 
+    def place_batch(self, batch: Sequence[Any]) -> Tuple[List[torch.Tensor], torch.Tensor]:
+        """One ``(x0..xk, y)`` batch on the device: the placement stage of
+        the fit loop's input pipeline (``dataloader.DevicePrefetcher``).
+        ``train_step`` uses the placed tensors as they are."""
+        *bx, by = batch
+        return self._place_inputs(bx), self.place(by)
+
     # --- public API --------------------------------------------------------
+    def count_host_sync(self, n: int = 1, stall_s: float = 0.0) -> None:
+        """Record ``n`` deliberate host syncs of a fit or eval loop and the
+        seconds the host spent blocked in them."""
+        self.host_syncs += n
+        self.host_stall_s += stall_s
+
     def train_step(self, inputs: Sequence[Any], labels: Any
                    ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """One step: forward, loss, backward, optimizer update.  Returns
         the loss and the metrics as device tensors, with no host sync."""
+        plan = get_fault_plan()
+        if plan is not None:
+            plan.on_train_step(self)
         xs = self._place_inputs(inputs)
         y = self.place(labels)
         params = self.param_list()

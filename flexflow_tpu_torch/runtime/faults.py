@@ -1,9 +1,11 @@
-"""Deterministic fault injection for the serve loop.
+"""Deterministic fault injection for the fit and serve loops.
 
 Counterpart of ``flexflow_tpu/runtime/faults.py``.  A :class:`FaultPlan`
-(``--fault-plan``) names which fault fires at which step, and the serve
-engine's hook (the top of ``ServeEngine._window``) injects it where a
-real failure would surface.
+(``--fault-plan``) names which fault fires at which step, and two hooks
+inject it where a real failure would surface: the top of
+``Executor.train_step`` (site ``fit``, keyed on the executor's step
+count, so a ``device_loss`` at step N raises before step N changes
+anything) and the top of ``ServeEngine._window`` (site ``serve``).
 
 Spec grammar (comma-separated events), the JAX package's::
 
@@ -11,25 +13,24 @@ Spec grammar (comma-separated events), the JAX package's::
     [site:]kind@~lo-hi[:arg]     # step drawn from [lo, hi] by the seed
 
 ``site`` is ``fit`` (the default; keyed on the executor's step) or
-``serve`` (keyed on ``ServeEngine.windows``).  Serve kinds:
+``serve`` (keyed on ``ServeEngine.windows``).  Kinds:
 
 * ``device_loss``: raise :class:`InjectedFault` (a ``RuntimeError``, as a
-  real device error is) out of the window;
+  real device error is) out of the step or window;
 * ``loader_stall``: sleep ``arg`` seconds (default 0.05) on the host;
 * ``sigterm``: ``os.kill(os.getpid(), SIGTERM)``, which the engine's
   handler turns into a drain.  The port refuses to send it when no
   handler is installed (the default action would kill the process);
-* ``dcn_degrade``: set ``dcn_degraded`` on the engine and sleep ``arg``
-  seconds.
+* ``dcn_degrade``: set ``dcn_degraded`` on the executor or engine and
+  sleep ``arg`` seconds;
+* ``nan_grads`` (fit site only): multiply one parameter by NaN in place,
+  a device op with no host sync, so the next step's loss and gradients
+  turn non-finite.
 
 The random form resolves when the spec is parsed, from the plan's seed,
 with the JAX package's generator: the same ``(spec, seed)`` gives the
-same events in both packages.  ``nan_grads`` is a fit-site kind.
-
-The port has no fit-site hook yet (the executor's ``fit`` is ROADMAP.md
-queue A item 3), so :func:`set_fault_plan` refuses a plan that holds a
-fit-site event instead of ignoring it.  With no plan installed the hook
-costs one call and one ``is None`` check.
+same events in both packages.  With no plan installed each hook costs
+one call and one ``is None`` check.
 """
 
 from __future__ import annotations
@@ -42,6 +43,7 @@ import time
 from typing import List, Optional
 
 import numpy as np
+import torch
 
 __all__ = [
     "FAULT_KINDS",
@@ -49,6 +51,7 @@ __all__ = [
     "FaultEvent",
     "FaultPlan",
     "InjectedFault",
+    "configure_faults_from_config",
     "get_fault_plan",
     "set_fault_plan",
 ]
@@ -91,7 +94,7 @@ class FaultEvent:
 
 
 class FaultPlan:
-    """A seeded, ordered set of :class:`FaultEvent`\\ s and the serve hook."""
+    """A seeded, ordered set of :class:`FaultEvent`\\ s and the two hooks."""
 
     def __init__(self, events: List[FaultEvent], seed: int = 0, spec: str = "") -> None:
         self.events = list(events)
@@ -161,6 +164,13 @@ class FaultPlan:
                 return e
         return None
 
+    def on_train_step(self, ex) -> None:
+        """Called at the top of ``Executor.train_step``, keyed on
+        ``ex._step_count``."""
+        ev = self._due("fit", ex._step_count)
+        if ev is not None:
+            self._inject(ev, ex)
+
     def on_serve_window(self, engine) -> None:
         """Called at the top of ``ServeEngine._window``, keyed on
         ``engine.windows``."""
@@ -173,6 +183,11 @@ class FaultPlan:
             raise InjectedFault(ev.kind, ev.step, ev.site)
         if ev.kind == "loader_stall":
             time.sleep(ev.arg or 0.05)
+            return
+        if ev.kind == "nan_grads":
+            leaf = next(t for ws in target.params.values() for t in ws.values())
+            with torch.no_grad():
+                leaf.mul_(float("nan"))
             return
         if ev.kind == "sigterm":
             if signal.getsignal(signal.SIGTERM) in (signal.SIG_DFL, signal.SIG_IGN, None):
@@ -198,15 +213,19 @@ def get_fault_plan() -> Optional[FaultPlan]:
 
 
 def set_fault_plan(plan: Optional[FaultPlan]) -> Optional[FaultPlan]:
-    """Install ``plan`` for the process (``None`` removes it).  A plan
-    with a fit-site event is refused: the port has no fit-site hook."""
+    """Install ``plan`` for the process (``None`` removes it)."""
     global _PLAN
-    if plan is not None:
-        fit = [e for e in plan.events if e.site != "serve"]
-        if fit:
-            raise ValueError(
-                f"fault plan {plan.identity}: {len(fit)} fit-site event(s), but the port "
-                f"injects faults only at the serve site (the fit loop is not ported yet: "
-                f"ROADMAP.md queue A item 3)")
     _PLAN = plan
     return _PLAN
+
+
+def configure_faults_from_config(cfg) -> Optional[FaultPlan]:
+    """Install the plan of ``cfg.fault_plan`` (a JSON plan file when the
+    path exists, else a spec string parsed with ``cfg.seed``).  An unset
+    field leaves the current plan alone."""
+    spec = getattr(cfg, "fault_plan", None)
+    if not spec:
+        return _PLAN
+    if os.path.exists(spec):
+        return set_fault_plan(FaultPlan.from_file(spec))
+    return set_fault_plan(FaultPlan.parse(spec, seed=getattr(cfg, "seed", 0)))

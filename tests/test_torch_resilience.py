@@ -404,12 +404,29 @@ def test_fault_plan_from_event_file_and_bad_specs(tmp_path):
 
 
 def test_fit_site_plan_is_refused():
-    plan = FaultPlan.parse("serve:sigterm@3,device_loss@2")
-    with pytest.raises(ValueError, match="ROADMAP"):
-        set_fault_plan(plan)
-    assert get_fault_plan() is None
-    ok = FaultPlan.parse("serve:loader_stall@1:0.001")
-    assert set_fault_plan(ok) is ok and get_fault_plan() is ok
+    """The name predates the fit-site hook; a fit-site plan is now
+    accepted and each event fires once, at the top of the step it names
+    (``device_loss`` before that step changes anything, ``nan_grads``
+    poisoning a weight in place, ``dcn_degrade`` flagging the executor),
+    while a plan of bad grammar is still refused."""
+    for bad in ("fit:device_loss", "fit:melt@1", "fit:nan_grads@-1"):
+        with pytest.raises(ValueError):
+            FaultPlan.parse(bad)
+    plan = FaultPlan.parse("serve:sigterm@3,device_loss@2,fit:dcn_degrade@0,nan_grads@1")
+    assert set_fault_plan(plan) is plan and get_fault_plan() is plan
+    w = torch.zeros(3)
+    ex = types.SimpleNamespace(_step_count=0, params={"l": {"kernel": w}}, dcn_degraded=False)
+    plan.on_train_step(ex)
+    assert ex.dcn_degraded and not torch.isnan(w).any()
+    ex._step_count = 1
+    plan.on_train_step(ex)
+    assert torch.isnan(w).all()
+    ex._step_count = 2
+    with pytest.raises(InjectedFault, match="device_loss.*fit step 2"):
+        plan.on_train_step(ex)
+    plan.on_train_step(ex)  # each event fires once
+    assert [e.fired for e in plan.events if e.site == "fit"] == [True, True, True]
+    assert [e.fired for e in plan.events if e.site == "serve"] == [False]
 
 
 def test_serve_faults_inject(port_model):

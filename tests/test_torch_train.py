@@ -166,9 +166,35 @@ def test_set_weights_refuses_before_writing(change):
 
 
 def test_token_embedding_front_end_is_not_ported():
-    tm = TModel(TConfig(device="cpu"))
-    with pytest.raises(NotImplementedError, match="embedding"):
-        t_encoder(tm, batch=2, seq=8, hidden=16, heads=2, ff_dim=16, num_layers=1)
+    """The name predates the token front end's port; the test now holds it
+    against JAX: ``raw_input=False`` builds ``token_ids`` -> ``tok_embed``
+    plus the ``pos_embed`` input -> ``embed_add``, carries the JAX weights
+    (the embedding table included) and trains to the same losses, ids
+    past the vocabulary included (they clamp to the last row)."""
+    enc = dict(batch=2, seq=8, hidden=16, heads=2, ff_dim=16, num_layers=1, vocab=11,
+               num_classes=3)
+    jm = FFModel(FFConfig(batch_size=2))
+    transformer_encoder(jm, **enc)
+    jm.compile(optimizer=AdamOptimizer(alpha=1e-3),
+               loss_type=LossType.SPARSE_CATEGORICAL_CROSSENTROPY,
+               mesh=MachineMesh((1, 1), ("data", "model")), seed=0)
+    tm = TModel(TConfig(batch_size=2, device="cpu"))
+    t_encoder(tm, **enc)
+    tm.compile(topt.AdamOptimizer(alpha=1e-3))
+    assert [l.name for l in tm.layers][:3] == ["tok_embed", "embed_add", "enc0_attn"]
+    assert [t.name for t in tm.graph_inputs] == ["token_ids", "pos_embed"]
+    assert tm.graph_inputs[0].dtype is tft.DataType.INT32
+    tm.set_weights(jm.get_weights())
+    rng = np.random.default_rng(2)
+    ids = rng.integers(0, 13, size=(2, 8)).astype(np.int32)
+    pos = rng.normal(size=(2, 8, 16)).astype(np.float32)
+    y = rng.integers(0, 3, size=(2, 1)).astype(np.int32)
+    for _ in range(3):
+        jl, _ = jm.executor.train_step([ids, pos], y)
+        tl, _ = tm.executor.train_step([ids, pos], y)
+        assert abs(float(tl) - float(jl)) <= 1e-5 * abs(float(jl))
+    jw, tw = jm.get_weights(), tm.get_weights()
+    assert np.abs(tw["tok_embed"]["kernel"] - jw["tok_embed"]["kernel"]).max() <= 1e-4
 
 
 def _driver(*args):

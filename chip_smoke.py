@@ -102,7 +102,14 @@ Phases, each printing one JSON line; any failure exits non-zero:
    ``dropout_causal`` (B 2, H 4, S 512, D 128, causal, dropout 0.1), the
    float32 backward's D 128 kernels with the mask and dropout together;
    ``gpt_causal`` (B 4, H 12, S 1024, D 64, causal, float32 and
-   bfloat16) is the shape that phase ``gpt_train`` gives them.
+   bfloat16) is the shape that phase ``gpt_train`` gives them;
+   ``bh_65544`` (B 5462, H 12, S 128, D 64, float32 and bfloat16: 2.1 GB
+   a float32 tensor) runs past the grid's y limit of 65535 rows, so each
+   call launches its kernel over two chunks of rows;
+   ``grid_chunks_dropout`` (B 2, H 6, S 256, D 64, causal, dropout 0.1)
+   runs with ``GRID_Y_MAX`` set to 5, so the dropout hash and the mask
+   are checked across chunk boundaries.  ``flash_attention_bh_65544_timing``
+   times the three kernels at ``bh_65544``'s shape beside their bound.
    Tolerances, relative to max |reference|: float32 2e-5 forward, 1e-4
    backward (the kernels sum tile by tile, the plain versions over whole
    rows; the float32 kernels' products are 3xTF32); bfloat16 2e-2 (both
@@ -139,12 +146,23 @@ Phases, each printing one JSON line; any failure exits non-zero:
    kernels' device time; ``gpt_train_serve``: the trained float32 weights
    in the paged engine, greedy streams against ``gpt_generate``'s by the
    speculative arm's margin rule, launches by route gated.
+   ``zoo`` (:func:`zoo_phase`): every model of the zoo (MLP
+   784-512-512-10; AlexNet and ResNet-50 at 229x229; ResNeXt-50 32x4d at
+   224x224 and InceptionV3 at 299x299, 1000 classes; DLRM and XDL with 4
+   tables of 1,000,000 x 64; CANDLE-Uno; the MoE classifier, unfused and
+   fused, and the MoE encoder at ``moe.cc``'s constants) through
+   ``FFModel.fit``, 3 SGD steps of batch 64 in float32, the losses within
+   ``ZOO_LOSS_TOL`` (1e-3 relative; the aim is 1e-4) of a float64 run of
+   the same model from the same weights and batches; step times, samples/s and peak
+   memory beside the card; no flash or paged launch.
+   ``zoo_batch_norm``: a conv -> batch_norm model the same way, its
+   running stats moved and within 1e-4 of the float64 run's.
 6. ``kernels``: one line ``{"kernels": [...]}`` with each kernel's
    route, source, the TPU kernel it replaces, launches by path
    (``launches_by_path``: each path's count, ``launches`` their sum;
    the flash kernels over ``train``, ``train_fit`` and its resume and
-   eval, and ``gpt_train``; the paged kernel over ``serve`` and
-   ``gpt_train_serve``), launches on its path
+   eval, ``gpt_train`` and ``zoo``; the paged kernel over ``serve``,
+   ``gpt_train_serve`` and ``zoo``), launches on its path
    (``paged_attention_quant``: the int8 ``serve_quant`` run, fp8 beside
    it; ``paged_attention``: by route as well), error against the plain
    version, times and bound, and ``was_ms`` beside a redesigned kernel's
@@ -199,6 +217,28 @@ QUANT_PROB_TOL = 1e-2
 # relative top-2 margin (p1 - p2) / p1 is under SPEC_MARGIN
 SPEC_K, SPEC_DRAFT, SPEC_MARGIN = 3, 6, 1e-4
 SPLIT_KEYS = 64  # the straddle case's boundary where no page split is planned
+# zoo: every zoo model through FFModel.fit, float32, 3 SGD steps of batch 64
+# at its published widths, held against a float64 run of the same model:
+# (label, driver model name, build_zoo arguments beyond the app's defaults)
+# (ResNet-50, without BatchNorm in the reference's graph, diverges at the
+# example's SGD rate: loss 3.65 -> 14.5 in 3 steps, and its float32 run sat
+# 5.4e-5 from float64 on an H100; the aim is 1e-4, the gate 1e-3)
+ZOO_BATCH, ZOO_STEPS, ZOO_LOSS_TOL = 64, 3, 1e-3
+ZOO_CASES = (
+    ("MLP 784-512-512-10", "mlp", {}),
+    ("AlexNet", "alexnet", dict(size=229)),
+    ("ResNet-50", "resnet", dict(size=229)),
+    ("ResNeXt-50 32x4d", "resnext50", dict(size=224, classes=1000)),
+    ("InceptionV3", "inception", dict(size=299, classes=1000)),
+    ("DLRM", "dlrm", dict(embedding_size=1000000)),
+    ("XDL", "xdl", dict(embedding_size=1000000)),
+    ("CANDLE-Uno", "candle_uno", {}),
+    ("MoE classifier", "moe", {}),
+    ("MoE classifier, fused", "moe", dict(fused=True)),
+    ("MoE encoder", "moe_encoder", {}),
+)
+# the flash kernels past the grid's y limit: B * H = 65544 rows at S 128, D 64
+BIG_BH = (5462, 12)
 # cycles the card spins before each timed call (about 1 ms at 1.98 GHz)
 SPIN_CYCLES = 2_000_000
 # published peaks of the cards the port runs on (NVIDIA data sheet,
@@ -881,9 +921,11 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # --- 4. flash_attention: kernels against plain, then timing --------------
-    def qkv(shape_q, shape_k, dtype, seed):
-        g = torch.Generator(device="cpu").manual_seed(seed)
-        q, k, v, do = (torch.randn(s, generator=g).to(dev, dtype)
+    def qkv(shape_q, shape_k, dtype, seed, on_card=False):
+        """q, k, v and dO from a seeded generator, on the host or (for the
+        2 GB tensors of ``bh_65544``) on the card."""
+        g = torch.Generator(device=dev if on_card else "cpu").manual_seed(seed)
+        q, k, v, do = (torch.randn(s, generator=g, device=g.device).to(dev, dtype)
                        for s in (shape_q, shape_k, shape_k, shape_q))
         return q, k, v, do
 
@@ -896,7 +938,8 @@ def main() -> int:
     flash_worst = {"fwd": 0.0, "dq": 0.0, "dkv": 0.0}  # float32 max abs errors
 
     def flash_case(name, B_, H_, sq, sk, D_, dtype, causal, rate=0.0, seed=0, v_eye=False):
-        q, k, v, do = qkv((B_, H_, sq, D_), (B_, H_, sk, D_), dtype, SEED + sq + sk + D_)
+        q, k, v, do = qkv((B_, H_, sq, D_), (B_, H_, sk, D_), dtype, SEED + sq + sk + D_,
+                          on_card=B_ * H_ > fa.GRID_Y_MAX)
         if v_eye:  # the output is the dropped probabilities themselves
             v = torch.eye(sk, device=dev, dtype=dtype).expand(B_, H_, sk, sk).contiguous()
         args = (causal, rate, seed)
@@ -968,14 +1011,28 @@ def main() -> int:
     GH, GD = GPT2_SMALL["heads"], GPT2_SMALL["hidden"] // GPT2_SMALL["heads"]
     flash_case("gpt_causal", GPT_B, GH, SEQ, SEQ, GD, f32, True)
     flash_case("gpt_causal", GPT_B, GH, SEQ, SEQ, GD, bf16, True)
+    # B * H past the grid's y limit: each call launches its kernel over
+    # chunks of GRID_Y_MAX rows (65535 and 9 here)
+    for dtype in (f32, bf16):
+        flash_case("bh_65544", *BIG_BH, 128, 128, 64, dtype, False)
+        torch.cuda.empty_cache()
+    # the chunking with dropout and the causal mask, at a small size: chunks
+    # of 5 rows, each kernel hashing its row as the chunk's first row plus
+    # blockIdx.y
+    grid_y_max, fa.GRID_Y_MAX = fa.GRID_Y_MAX, 5
+    try:
+        flash_case("grid_chunks_dropout", 2, 6, 256, 256, 64, f32, True, 0.1, 99)
+        flash_case("grid_chunks_dropout", 2, 6, 256, 256, 64, bf16, True, 0.1, 99)
+    finally:
+        fa.GRID_Y_MAX = grid_y_max
 
-    def flash_bound(kind, dtype):
-        """Least time for one kernel's work at the slice's shape: each
-        input read once and each output written once, or its matmul flops
-        (4 / 6 / 8 x D per (row, key) pair) at the card's peak for the
-        input type (float32: 3xTF32), whichever is larger."""
+    def flash_bound(kind, dtype, bh=TRAIN_B * TH, s_=TRAIN_S, d_=TD):
+        """Least time for one kernel's work at (B * H, S, D), the slice's
+        shape by default: each input read once and each output written
+        once, or its matmul flops (4 / 6 / 8 x D per (row, key) pair) at
+        the card's peak for the input type (float32: 3xTF32), whichever is
+        larger."""
         esize = 4 if dtype == f32 else 2
-        bh, s_, d_ = TRAIN_B * TH, TRAIN_S, TD
         mat = bh * s_ * d_ * esize  # one (B, H, S, D) tensor
         rows = bh * s_ * 4  # one float32 (B * H, S) row vector
         nbytes = {"fwd": 4 * mat + rows, "dq": 5 * mat + 2 * rows,
@@ -1019,6 +1076,27 @@ def main() -> int:
         return res
 
     flash_t = {"float32": flash_timing(f32), "bfloat16": flash_timing(bf16)}
+
+    def flash_big_timing(dtype):
+        """The three kernels at ``bh_65544``'s shape, where each call
+        launches over two chunks of rows, beside their bound."""
+        shape = BIG_BH + (128, 64)
+        q, k, v, do = qkv(shape, shape, dtype, SEED, on_card=True)
+        out, lse = fa.flash_fwd(q, k, v)
+        args = (q, k, v, do, lse, fa.flash_delta(out, do))
+        res = {"fwd": time_ms(lambda: fa.flash_fwd(q, k, v), iters=10),
+               "dq": time_ms(lambda: fa.flash_bwd_dq(*args), iters=10),
+               "dkv": time_ms(lambda: fa.flash_bwd_dkv(*args), iters=10)}
+        return {kind: {"ms": t, **flash_bound(kind, dtype, BIG_BH[0] * BIG_BH[1], 128, 64)}
+                for kind, t in res.items()}
+
+    big_t = {"float32": flash_big_timing(f32)}
+    torch.cuda.empty_cache()
+    big_t["bfloat16"] = flash_big_timing(bf16)
+    torch.cuda.empty_cache()
+    emit({"phase": "flash_attention_bh_65544_timing", "B": BIG_BH[0], "H": BIG_BH[1], "S": 128,
+          "D": 64, "launches_per_call": len(fa.bh_chunks(BIG_BH[0] * BIG_BH[1])), **big_t,
+          "card": card})
     emit({"phase": "flash_attention_timing", "B": TRAIN_B, "H": TH, "S": TRAIN_S, "D": TD,
           "causal": False, "dropout": 0.0, **flash_t,
           "peaks": {"bytes_per_s": peak_bw, "f32_3xtf32_flop_per_s": peak_3xtf32,
@@ -1094,6 +1172,9 @@ def main() -> int:
                                    (peak_bw, peak_3xtf32, peak_bf16))
     torch.cuda.empty_cache()
 
+    # --- 5d. zoo: every zoo model through fit, against float64 --------------
+    zoo_launches = zoo_phase(dev, card, zero_counts)
+
     # --- 6. kernels -----------------------------------------------------------
     src = "flexflow_tpu_torch/ops/cuda/csrc/"
     tpu = "flexflow_tpu/ops/pallas/"
@@ -1104,7 +1185,8 @@ def main() -> int:
 
     # launches by path: each path's count, read just after it ran with every
     # count set to 0 just before it; "launches" is their sum
-    paged_paths = {"serve": launches_serve, "gpt_train_serve": gpt_launches["serve"]}
+    paged_paths = {"serve": launches_serve, "gpt_train_serve": gpt_launches["serve"],
+                   "zoo": zoo_launches["paged"]}
     kernels = [{
         "name": "paged_attention",
         "route": "cuda",
@@ -1130,7 +1212,8 @@ def main() -> int:
                    "train_fit": fit_launches["fit"][kind],
                    "train_fit_resume": fit_launches["resume"][kind],
                    "train_fit_eval": fit_launches["eval"][kind],
-                   "gpt_train": gpt_launches["float32"][kind]}
+                   "gpt_train": gpt_launches["float32"][kind],
+                   "zoo": zoo_launches[kind]}
         paths16 = {"train": train_launches["bfloat16"][kind],
                    "gpt_train": gpt_launches["bfloat16"][kind]}
         entry = {"name": name, "route": "cuda", "source": src + "flash_attention.cu",
@@ -1901,6 +1984,130 @@ def gpt_train_phase(dev, card, zero_counts, peak) -> dict:
         raise SystemExit(f"gpt_train_serve: failed checks {checks}; diverged {diverged}")
     out["serve"] = serve_launches
     return out
+
+
+def zoo_phase(dev, card, zero_counts) -> dict:
+    """Phase ``zoo``: every model of the zoo through ``FFModel.fit`` on the
+    card, float32, 3 SGD steps of batch 64 at its published widths
+    (``ZOO_CASES``), held against a float64 run of the same port model
+    from the same weights and batches: the 3 losses within
+    ``ZOO_LOSS_TOL`` relative.  Each line reports the step times,
+    samples/s and peak memory of the float32 run beside the card.  Every
+    kernel count is set to 0 just before each float32 fit and read just
+    after it: the zoo launches no flash or paged kernel.  A last line,
+    ``zoo_batch_norm``, trains a small conv -> batch_norm model the same
+    way (no zoo model has BatchNorm) and checks that its running stats
+    moved and match the float64 run's.  Returns the kernel launches over
+    the zoo's float32 fits.  ``peak_mem_bytes`` is the peak of the float32
+    fit, its model's weights and the data placed included;
+    ``resident_before_fit_bytes`` what was allocated when it began."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from flexflow_tpu_torch.config import FFConfig
+    from flexflow_tpu_torch.model import FFModel
+    from flexflow_tpu_torch.ops.cuda import flash_attention as fa
+    from flexflow_tpu_torch.ops.cuda import paged_attention as pa
+    from flexflow_tpu_torch.optimizer import SGDOptimizer
+    from flexflow_tpu_torch.runtime.driver import build_zoo, make_zoo_data
+
+    def fit(model, xs, y):
+        """3 steps of ``fit``, one epoch; each step's loss and its time
+        (the wrapper synchronises after each step to time it)."""
+        ex = model.executor
+        step = ex.train_step
+        losses, times = [], []
+
+        def timed_step(*args):
+            t0 = time.perf_counter()
+            loss, m = step(*args)
+            torch.cuda.synchronize(dev)
+            times.append(time.perf_counter() - t0)
+            losses.append(loss)
+            return loss, m
+
+        ex.train_step = timed_step
+        try:
+            model.fit(xs, y, batch_size=ZOO_BATCH, epochs=1, verbose=False)
+        finally:
+            del ex.train_step  # the class's method again, and no reference cycle
+        return [float(v) for v in losses], times
+
+    launches = {"fwd": 0, "dq": 0, "dkv": 0, "paged": 0}
+    for label, name, kw in ZOO_CASES:
+        model = build_zoo(name, batch=ZOO_BATCH, device=dev, **kw)
+        start = model.get_weights()  # the float64 run starts from these
+        xs, y = make_zoo_data(name, model, ZOO_STEPS * ZOO_BATCH)
+        torch.cuda.synchronize()
+        resident = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts()  # every kernel count to 0 just before the main path
+        losses, times = fit(model, xs, y)
+        counts = dict(fa.LAUNCHES, paged=pa.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated()
+        for k in launches:
+            launches[k] += counts[k]
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+        wide = build_zoo(name, batch=ZOO_BATCH, device=dev, compute_dtype="float64", **kw)
+        wide.set_weights(start)
+        ref, _ = fit(wide, xs, y)
+        rel = max(abs(a - b) / abs(b) for a, b in zip(losses, ref))
+        step_s = float(np.median(times[1:]))
+        ok = (len(losses) == ZOO_STEPS and all(math.isfinite(v) for v in losses + ref)
+              and rel <= ZOO_LOSS_TOL and not any(counts.values()))
+        line = {"phase": "zoo", "model": label, "builder": name, **kw,
+                "batch": ZOO_BATCH, "steps": ZOO_STEPS, "optimizer": "SGD",
+                "loss_type": wide.executor.loss_fn.__name__,
+                "parameters": wide.num_parameters(), "losses": losses,
+                "float64_losses": ref, "loss_rel_err_vs_float64": rel, "loss_tol": ZOO_LOSS_TOL,
+                "step_ms": [t * 1e3 for t in times], "step_ms_median_after_first": step_s * 1e3,
+                "samples_per_s": ZOO_BATCH / step_s, "peak_mem_bytes": peak,
+                "resident_before_fit_bytes": resident, "kernel_launches": counts, "ok": ok,
+                "card": card}
+        emit(line)
+        if not ok:
+            raise SystemExit(f"zoo {label}: {line}")
+        del wide, xs, y
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # executor state on the card: conv -> batch_norm -> pool -> dense
+    def bn_model(dtype):
+        m = FFModel(FFConfig(batch_size=ZOO_BATCH, compute_dtype=dtype, device=str(dev)))
+        t = m.create_tensor((ZOO_BATCH, 3, 32, 32))
+        t = m.batch_norm(m.conv2d(t, 64, 3, 3, 1, 1, 1, 1, name="conv"), name="bn")
+        t = m.pool2d(t, 32, 32, 1, 1, 0, 0, name="pool")
+        m.softmax(m.dense(m.flat(t), 10, name="head"))
+        m.compile(SGDOptimizer(lr=0.01))
+        return m
+
+    model, wide = bn_model("float32"), bn_model("float64")
+    wide.set_weights(model.get_weights())
+    before = model.get_weights()["bn"]
+    rng = np.random.default_rng(SEED)
+    xs = [(rng.normal(size=(ZOO_STEPS * ZOO_BATCH, 3, 32, 32)) * 2 + 1).astype(np.float32)]
+    y = rng.integers(0, 10, size=(ZOO_STEPS * ZOO_BATCH, 1)).astype(np.int32)
+    losses, _ = fit(model, xs, y)
+    ref, _ = fit(wide, xs, y)
+    after, after64 = model.get_weights()["bn"], wide.get_weights()["bn"]
+    moved = {k: float(np.abs(after[k] - before[k]).max()) for k in ("running_mean", "running_var")}
+    stats_err = max(float(np.abs(after[k] - after64[k]).max()) for k in after)
+    rel = max(abs(a - b) / abs(b) for a, b in zip(losses, ref))
+    ok = (rel <= ZOO_LOSS_TOL and min(moved.values()) > 1e-3 and stats_err <= 1e-4
+          and sorted(model.executor.state["bn"]) == ["running_mean", "running_var"])
+    line = {"phase": "zoo_batch_norm", "losses": losses, "float64_losses": ref,
+            "loss_rel_err_vs_float64": rel, "running_stats_moved": moved,
+            "running_stats_max_abs_err_vs_float64": stats_err, "ok": ok, "card": card}
+    emit(line)
+    if not ok:
+        raise SystemExit(f"zoo_batch_norm: {line}")
+    del model, wide
+    torch.cuda.empty_cache()
+    return launches
 
 
 def device_profile(fn, top=10, host_top=0) -> dict:

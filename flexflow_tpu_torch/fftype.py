@@ -1,4 +1,4 @@
-"""Core enums (the members the training slice uses).
+"""Core enums (the members the port's ops use).
 
 Counterpart of ``flexflow_tpu/fftype.py``: the same names and values, so
 graphs and strategy files mean the same thing in both packages.  Data
@@ -13,7 +13,8 @@ import itertools
 import torch
 
 __all__ = [
-    "DataType", "ActiMode", "AggrMode", "LossType", "MetricsType", "OperatorType", "LayerID",
+    "DataType", "ActiMode", "AggrMode", "PoolType", "LossType", "MetricsType", "OperatorType",
+    "LayerID",
 ]
 
 
@@ -48,6 +49,11 @@ class AggrMode(enum.Enum):
     AVG = "avg"
 
 
+class PoolType(enum.Enum):
+    MAX = "max"
+    AVG = "avg"
+
+
 class LossType(enum.Enum):
     CATEGORICAL_CROSSENTROPY = "categorical_crossentropy"
     SPARSE_CATEGORICAL_CROSSENTROPY = "sparse_categorical_crossentropy"
@@ -66,20 +72,59 @@ class MetricsType(enum.Enum):
 
 
 class OperatorType(enum.Enum):
-    """The op kinds of the encoder and decoder train paths."""
+    """The op kinds of the single-device op set (the JAX enum less the
+    parallel ops and ``FUSED``)."""
 
     NOOP = "noop"
     WEIGHT = "weight"
+    CONV2D = "conv2d"
     DROPOUT = "dropout"
     LINEAR = "linear"
+    BATCHMATMUL = "batch_matmul"
+    POOL2D = "pool2d"
+    SCALAR_MULTIPLY = "scalar_multiply"
+    SCALAR_ADD = "scalar_add"
+    SCALAR_SUB = "scalar_sub"
+    SCALAR_TRUE_DIV = "scalar_true_div"
+    RELU = "relu"
+    IDENTITY = "identity"
+    SIGMOID = "sigmoid"
+    TANH = "tanh"
+    ELU = "elu"
+    GELU = "gelu"
+    RSQRT = "rsqrt"
+    POW = "pow"
+    EXP = "exp"
+    SIN = "sin"
+    COS = "cos"
+    FLAT = "flat"
     SOFTMAX = "softmax"
+    BATCHNORM = "batch_norm"
     LAYERNORM = "layer_norm"
-    RESHAPE = "reshape"
-    EW_ADD = "ew_add"
-    REDUCE_MEAN = "reduce_mean"
-    MULTIHEAD_ATTENTION = "multihead_attention"
+    RMS_NORM = "rms_norm"
+    CONCAT = "concat"
+    SPLIT = "split"
     EMBEDDING = "embedding"
     GATHER = "gather"
+    CACHE = "cache"
+    AGGREGATE = "aggregate"
+    AGGREGATE_SPEC = "aggregate_spec"
+    RESHAPE = "reshape"
+    REVERSE = "reverse"
+    TRANSPOSE = "transpose"
+    EW_ADD = "ew_add"
+    EW_MUL = "ew_mul"
+    EW_SUB = "ew_sub"
+    EW_DIV = "ew_div"
+    EW_MAX = "ew_max"
+    EW_MIN = "ew_min"
+    REDUCE_SUM = "reduce_sum"
+    REDUCE_MEAN = "reduce_mean"
+    MULTIHEAD_ATTENTION = "multihead_attention"
+    TOPK = "topk"
+    GROUP_BY = "group_by"
+    EXPERTS = "experts"
+    CAST = "cast"
 
 
 class LayerID:

@@ -1,4 +1,4 @@
-"""Weight initializers (the subset the GPT decoder and the encoder use).
+"""Weight initializers.
 
 Counterpart of ``flexflow_tpu/initializer.py``: the same classes and
 fan rules, drawing from an explicit :class:`torch.Generator` in place
@@ -21,6 +21,8 @@ __all__ = [
     "GlorotUniform",
     "ZeroInitializer",
     "OnesInitializer",
+    "ConstantInitializer",
+    "UniformInitializer",
     "NormInitializer",
     "default_kernel_initializer",
     "default_bias_initializer",
@@ -62,8 +64,31 @@ class OnesInitializer(Initializer):
         return torch.ones(shape, dtype=dtype, device=gen.device)
 
 
+class ConstantInitializer(Initializer):
+    def __init__(self, value: float) -> None:
+        self.value = value
+
+    def __call__(self, gen, shape, dtype):
+        return torch.full(shape, self.value, dtype=dtype, device=gen.device)
+
+
+class UniformInitializer(Initializer):
+    """Uniform on [minv, maxv) (DLRM's tables: +-1/sqrt(vocab)).  ``seed``
+    is accepted for the JAX signature; the draw comes from the executor's
+    generator."""
+
+    def __init__(self, seed: int = 0, minv: float = -0.05, maxv: float = 0.05) -> None:
+        self.minv, self.maxv = minv, maxv
+
+    def __call__(self, gen, shape, dtype):
+        out = torch.empty(shape, dtype=dtype, device=gen.device)
+        return out.uniform_(self.minv, self.maxv, generator=gen)
+
+
 class NormInitializer(Initializer):
-    def __init__(self, mean: float = 0.0, stddev: float = 0.05) -> None:
+    """Normal(mean, stddev); ``seed`` as for :class:`UniformInitializer`."""
+
+    def __init__(self, seed: int = 0, mean: float = 0.0, stddev: float = 0.05) -> None:
         self.mean, self.stddev = mean, stddev
 
     def __call__(self, gen, shape, dtype):

@@ -1,8 +1,11 @@
-"""Training metrics (accuracy and sparse categorical cross-entropy).
+"""Training metrics: accuracy, the cross-entropies, MSE, RMSE and MAE.
 
 Counterpart of ``flexflow_tpu/metrics.py``.  ``Metrics.compute`` gives
 device tensors computed from the final op's output (the softmax
-probabilities), and nothing is fetched to the host.
+probabilities for the cross-entropies) as the JAX package computes them,
+and nothing is fetched to the host.  Accuracy compares the output's
+argmax with the integer label under sparse categorical cross-entropy,
+and with the label's argmax (one-hot labels) under any other loss.
 
 :class:`PerfMetrics` is the host accumulator of an epoch (or an eval
 pass), with the JAX fields and rounding.  :class:`DeviceMetricAccumulator`
@@ -21,7 +24,7 @@ from typing import Dict, Optional, Sequence, Tuple
 import torch
 
 from flexflow_tpu_torch.fftype import LossType, MetricsType
-from flexflow_tpu_torch.loss import sparse_categorical_crossentropy
+from flexflow_tpu_torch.loss import categorical_crossentropy, sparse_categorical_crossentropy
 
 __all__ = ["Metrics", "PerfMetrics", "DeviceMetricAccumulator"]
 
@@ -109,22 +112,29 @@ class Metrics:
     def __init__(self, loss_type: LossType, metrics: Sequence[MetricsType]) -> None:
         self.loss_type = loss_type
         self.metrics = list(metrics)
-        for m in self.metrics:
-            if m not in (MetricsType.ACCURACY, MetricsType.SPARSE_CATEGORICAL_CROSSENTROPY):
-                raise NotImplementedError(f"metric {m.value} is not ported")
-        if MetricsType.ACCURACY in self.metrics and (
-                loss_type is not LossType.SPARSE_CATEGORICAL_CROSSENTROPY):
-            raise NotImplementedError("accuracy is ported for sparse labels only")
 
     @torch.no_grad()
     def compute(self, probs: torch.Tensor, labels: torch.Tensor) -> Dict[str, torch.Tensor]:
         out: Dict[str, torch.Tensor] = {}
+        sparse = self.loss_type is LossType.SPARSE_CATEGORICAL_CROSSENTROPY
         for m in self.metrics:
             if m is MetricsType.ACCURACY:
-                lab = labels.reshape(labels.shape[0]).long()
+                lab = (labels.reshape(labels.shape[0]).long() if sparse
+                       else torch.argmax(labels, dim=-1))
                 pred = torch.argmax(probs, dim=-1)
                 out["accuracy"] = (pred == lab).float().mean()
             elif m is MetricsType.SPARSE_CATEGORICAL_CROSSENTROPY:
                 out["sparse_categorical_crossentropy"] = sparse_categorical_crossentropy(
                     probs, labels)
+            elif m is MetricsType.CATEGORICAL_CROSSENTROPY:
+                out["categorical_crossentropy"] = categorical_crossentropy(probs, labels)
+            elif m is MetricsType.MEAN_SQUARED_ERROR:
+                out["mean_squared_error"] = torch.mean(
+                    torch.sum(torch.square(probs - labels), dim=-1))
+            elif m is MetricsType.ROOT_MEAN_SQUARED_ERROR:
+                out["root_mean_squared_error"] = torch.sqrt(
+                    torch.mean(torch.sum(torch.square(probs - labels), dim=-1)))
+            elif m is MetricsType.MEAN_ABSOLUTE_ERROR:
+                out["mean_absolute_error"] = torch.mean(
+                    torch.sum(torch.abs(probs - labels), dim=-1))
         return out

@@ -1,19 +1,26 @@
 """``FFModel``: the layer-builder API, compile, the fit loop, and
 checkpoints.
 
-Counterpart of ``flexflow_tpu/model.py`` ``FFModel``, limited to what the
-encoder and decoder train paths use: the builders ``create_tensor``,
-``dense``, ``embedding``, ``parameter``, ``multihead_attention``,
-``add``, ``layer_norm``, ``dropout``, ``reduce_mean``, ``softmax`` and
-``reshape`` (same signatures and layer names), ``compile`` on one
-device, ``fit`` / ``eval`` / ``eval_batch``, ``get_weights`` /
+Counterpart of ``flexflow_tpu/model.py`` ``FFModel`` on one device: the
+single-device builders (``create_tensor``, ``dense``, ``conv2d``,
+``pool2d``, ``batch_norm``, ``layer_norm``, ``rms_norm``, ``embedding``,
+``gather``, ``multihead_attention``, ``softmax``, ``dropout``, ``flat``,
+``concat``, ``split``, ``reshape``, ``transpose``, ``reverse``,
+``reduce_sum``, ``reduce_mean``, ``batch_matmul``, ``cast``, ``top_k``,
+the MoE ops ``group_by``, ``aggregate``, ``aggregate_spec``, ``experts``
+and the composite ``moe``, ``cache``, ``parameter``, and the binary,
+unary and scalar elementwise ops; same signatures and layer names),
+``compile``, ``fit`` / ``eval`` / ``eval_batch``, ``get_weights`` /
 ``set_weights`` / ``num_parameters``, and ``save_checkpoint`` /
-``load_checkpoint``.
+``load_checkpoint``.  The parallel ops (``repartition``, ``combine``,
+``replicate``, ``reduction``, ``fused_parallel_op``) are mesh
+parallelism, ROADMAP.md queue A item 5.
 
 :meth:`FFModel.set_weights` carries weights across frameworks: it takes
 the per-layer ``{layer: {weight: np.ndarray}}`` dictionary that the JAX
-``FFModel.get_weights()`` returns, and checks every name and shape
-before it writes anything.
+``FFModel.get_weights()`` returns, parameters and state (BatchNorm's
+running stats) together, and checks every name and shape before it
+writes anything.
 
 :meth:`FFModel.fit` is the JAX loop's: loader thread, look-ahead
 placement (``dataloader.py``), then the step; metrics stay on the device
@@ -29,9 +36,10 @@ when it is given them.
 
 Checkpoints are ``ffckpt/2``: one ``.npz`` written atomically
 (:func:`_write_checkpoint_atomic`), with keys ``params/<layer>/<w>``,
-``opt/<m|v>/<layer>/<w>``, ``opt_scalar/step`` (int32) and
-``meta/step_count``, and a manifest (``meta/manifest``: schema, step,
-rng seed, loader cursor, a null strategy, and a content digest).  The
+``state/<layer>/<w>`` (non-trainable weights), ``opt/<m|v>/<layer>/<w>``,
+``opt_scalar/step`` (int32) and ``meta/step_count``, and a manifest
+(``meta/manifest``: schema, step, rng seed, loader cursor, a null
+strategy, and a content digest).  The
 digest hashes each array's key, dtype string, shape and bytes as the JAX
 package does, so a file written by either package loads in the other.
 The serve drain (``ffdrain/1``) and the ``ffkv/1`` frames use the same
@@ -57,7 +65,7 @@ from flexflow_tpu_torch.config import FFConfig
 from flexflow_tpu_torch.dataloader import BatchIterator, DevicePrefetcher, SingleDataLoader
 from flexflow_tpu_torch.device import resolve_device
 from flexflow_tpu_torch.fftype import (
-    ActiMode, AggrMode, DataType, LossType, MetricsType, OperatorType,
+    ActiMode, AggrMode, DataType, LossType, MetricsType, OperatorType, PoolType,
 )
 from flexflow_tpu_torch.initializer import Initializer
 from flexflow_tpu_torch.metrics import DeviceMetricAccumulator, Metrics, PerfMetrics
@@ -267,16 +275,54 @@ class FFModel:
                  kernel_initializer=kernel_initializer),
         )[0]
 
+    def conv2d(self, input: Tensor, out_channels: int, kernel_h: int, kernel_w: int,
+               stride_h: int, stride_w: int, padding_h: int, padding_w: int,
+               activation: ActiMode = ActiMode.NONE, groups: int = 1, use_bias: bool = True,
+               kernel_initializer: Optional[Initializer] = None,
+               bias_initializer: Optional[Initializer] = None,
+               name: Optional[str] = None) -> Tensor:
+        return self._add_layer(
+            OperatorType.CONV2D, self._name("conv2d", name), [input],
+            dict(out_channels=out_channels, kernel_h=kernel_h, kernel_w=kernel_w,
+                 stride_h=stride_h, stride_w=stride_w, padding_h=padding_h,
+                 padding_w=padding_w, activation=activation, groups=groups, use_bias=use_bias,
+                 kernel_initializer=kernel_initializer, bias_initializer=bias_initializer),
+        )[0]
+
+    def pool2d(self, input: Tensor, kernel_h: int, kernel_w: int, stride_h: int, stride_w: int,
+               padding_h: int, padding_w: int, pool_type: PoolType = PoolType.MAX,
+               activation: ActiMode = ActiMode.NONE, name: Optional[str] = None) -> Tensor:
+        return self._add_layer(
+            OperatorType.POOL2D, self._name("pool2d", name), [input],
+            dict(kernel_h=kernel_h, kernel_w=kernel_w, stride_h=stride_h, stride_w=stride_w,
+                 padding_h=padding_h, padding_w=padding_w, pool_type=pool_type,
+                 activation=activation),
+        )[0]
+
+    def batch_norm(self, input: Tensor, relu: bool = True, name: Optional[str] = None) -> Tensor:
+        return self._add_layer(OperatorType.BATCHNORM, self._name("batch_norm", name), [input],
+                               dict(relu=relu))[0]
+
+    def rms_norm(self, input: Tensor, eps: float = 1e-6, name: Optional[str] = None) -> Tensor:
+        return self._add_layer(OperatorType.RMS_NORM, self._name("rms_norm", name), [input],
+                               dict(eps=eps))[0]
+
     def parameter(self, shape: Sequence[int], dtype: DataType = DataType.FLOAT,
                   initializer: Optional[Initializer] = None, trainable: bool = True,
                   name: Optional[str] = None) -> Tensor:
-        """A free trainable tensor with no producing layer (weight
-        ``value``); ``trainable=False`` raises (``ops/parallel_ops.py``)."""
+        """A free tensor with no producing layer (weight ``value``): a
+        parameter, or state when ``trainable=False`` or ``dtype`` is not
+        a float type."""
         return self._add_layer(
             OperatorType.WEIGHT, self._name("parameter", name), [],
             dict(shape=tuple(shape), dtype=dtype, initializer=initializer,
                  trainable=trainable),
         )[0]
+
+    def cache(self, input: Tensor, name: Optional[str] = None) -> Tensor:
+        """Passes ``input`` through and keeps its last training batch as
+        state (``ops/tensor_ops.py`` ``Cache``)."""
+        return self._add_layer(OperatorType.CACHE, self._name("cache", name), [input], {})[0]
 
     def layer_norm(self, input: Tensor, axes: Sequence[int], elementwise_affine: bool = True,
                    eps: float = 1e-5, name: Optional[str] = None) -> Tensor:
@@ -308,22 +354,179 @@ class FFModel:
         return self._add_layer(OperatorType.DROPOUT, self._name("dropout", name), [input],
                                dict(rate=rate, seed=seed))[0]
 
+    def flat(self, input: Tensor, name: Optional[str] = None) -> Tensor:
+        return self._add_layer(OperatorType.FLAT, self._name("flat", name), [input], {})[0]
+
+    def concat(self, tensors: Sequence[Tensor], axis: int, name: Optional[str] = None) -> Tensor:
+        return self._add_layer(OperatorType.CONCAT, self._name("concat", name), list(tensors),
+                               dict(axis=axis))[0]
+
+    def split(self, input: Tensor, sizes: Union[int, Sequence[int]], axis: int,
+              name: Optional[str] = None) -> List[Tensor]:
+        """Split ``axis`` into ``sizes`` pieces, or into ``sizes`` equal
+        pieces when it is an int."""
+        if isinstance(sizes, int):
+            if input.shape[axis] % sizes:
+                raise ValueError(f"split: dim {axis} of {input.shape} is not divisible by "
+                                 f"{sizes}")
+            sizes = [input.shape[axis] // sizes] * sizes
+        return self._add_layer(OperatorType.SPLIT, self._name("split", name), [input],
+                               dict(sizes=tuple(sizes), axis=axis))
+
     def reshape(self, input: Tensor, shape: Sequence[int], name: Optional[str] = None) -> Tensor:
         return self._add_layer(OperatorType.RESHAPE, self._name("reshape", name), [input],
                                dict(shape=tuple(shape)))[0]
+
+    def transpose(self, input: Tensor, perm: Sequence[int], name: Optional[str] = None) -> Tensor:
+        return self._add_layer(OperatorType.TRANSPOSE, self._name("transpose", name), [input],
+                               dict(perm=tuple(perm)))[0]
+
+    def reverse(self, input: Tensor, axis: int, name: Optional[str] = None) -> Tensor:
+        return self._add_layer(OperatorType.REVERSE, self._name("reverse", name), [input],
+                               dict(axis=axis))[0]
+
+    def reduce_sum(self, input: Tensor, axes: Sequence[int], keepdims: bool = False,
+                   name: Optional[str] = None) -> Tensor:
+        return self._add_layer(OperatorType.REDUCE_SUM, self._name("reduce_sum", name),
+                               [input], dict(axes=tuple(axes), keepdims=keepdims))[0]
 
     def reduce_mean(self, input: Tensor, axes: Sequence[int], keepdims: bool = False,
                     name: Optional[str] = None) -> Tensor:
         return self._add_layer(OperatorType.REDUCE_MEAN, self._name("reduce_mean", name),
                                [input], dict(axes=tuple(axes), keepdims=keepdims))[0]
 
-    def add(self, x: Tensor, y: Tensor, name: Optional[str] = None) -> Tensor:
-        return self._add_layer(OperatorType.EW_ADD, self._name("add", name), [x, y], {})[0]
+    def batch_matmul(self, a: Tensor, b: Tensor, a_seq_length_dim: Optional[int] = None,
+                     b_seq_length_dim: Optional[int] = None,
+                     name: Optional[str] = None) -> Tensor:
+        return self._add_layer(
+            OperatorType.BATCHMATMUL, self._name("batch_matmul", name), [a, b],
+            dict(a_seq_length_dim=a_seq_length_dim, b_seq_length_dim=b_seq_length_dim),
+        )[0]
 
     def gather(self, data: Tensor, index: Tensor, dim: int = 0,
                name: Optional[str] = None) -> Tensor:
         return self._add_layer(OperatorType.GATHER, self._name("gather", name), [data, index],
                                dict(dim=dim))[0]
+
+    def cast(self, input: Tensor, dtype: DataType, name: Optional[str] = None) -> Tensor:
+        return self._add_layer(OperatorType.CAST, self._name("cast", name), [input],
+                               dict(dtype=dtype))[0]
+
+    def top_k(self, input: Tensor, k: int, sorted: bool = True,
+              name: Optional[str] = None) -> List[Tensor]:
+        """(values, int32 indices) of the ``k`` largest along the last dim."""
+        return self._add_layer(OperatorType.TOPK, self._name("topk", name), [input],
+                               dict(k=k, sorted=sorted))
+
+    # ------------------------------------------------------------------- MoE
+    def group_by(self, data: Tensor, assign: Tensor, n_experts: int, alpha: float = 1.0,
+                 name: Optional[str] = None) -> List[Tensor]:
+        return self._add_layer(OperatorType.GROUP_BY, self._name("group_by", name),
+                               [data, assign], dict(n_experts=n_experts, alpha=alpha))
+
+    def aggregate(self, inputs: Sequence[Tensor], n: int, lambda_bal: float = 0.0,
+                  name: Optional[str] = None) -> Tensor:
+        return self._add_layer(OperatorType.AGGREGATE, self._name("aggregate", name),
+                               list(inputs), dict(n=n, lambda_bal=lambda_bal))[0]
+
+    def aggregate_spec(self, inputs: Sequence[Tensor], n: int, lambda_bal: float = 0.0,
+                       name: Optional[str] = None) -> Tensor:
+        return self._add_layer(OperatorType.AGGREGATE_SPEC, self._name("aggregate_spec", name),
+                               list(inputs), dict(n=n, lambda_bal=lambda_bal))[0]
+
+    def experts(self, input: Tensor, assign: Tensor, gate_preds: Tensor, gate_full: Tensor,
+                num_experts: int, hidden: int, alpha: float = 2.0, lambda_bal: float = 0.0,
+                name: Optional[str] = None) -> Tensor:
+        """The fused expert block (``ops/moe.py`` ``Experts``)."""
+        return self._add_layer(
+            OperatorType.EXPERTS, self._name("experts", name),
+            [input, assign, gate_preds, gate_full],
+            dict(n_experts=num_experts, hidden=hidden, alpha=alpha, lambda_bal=lambda_bal),
+        )[0]
+
+    def moe(self, input: Tensor, num_exp: int, num_select: int, expert_hidden_size: int,
+            alpha: float = 2.0, lambda_bal: float = 0.04, fused: bool = False,
+            name: Optional[str] = None) -> Tensor:
+        """gate -> top_k -> group_by -> per-expert dense pairs -> aggregate;
+        ``fused=True`` takes the one ``experts`` op for the tail."""
+        gate = self.dense(input, num_exp, ActiMode.NONE, name=self._name("moe_gate", name))
+        gate = self.softmax(gate)
+        topk_out, topk_idx = self.top_k(gate, num_select)
+        if fused:
+            return self.experts(input, topk_idx, topk_out, gate, num_exp, expert_hidden_size,
+                                alpha, lambda_bal, name=self._name("moe_experts", name))
+        grouped = self.group_by(input, topk_idx, num_exp, alpha)
+        experts = [self.dense(self.dense(g, expert_hidden_size, ActiMode.RELU), input.shape[-1])
+                   for g in grouped]
+        return self.aggregate([topk_out, topk_idx, topk_idx, gate] + experts, num_exp,
+                              lambda_bal)
+
+    # ----------------------------------------------------------- elementwise
+    def add(self, x: Tensor, y: Tensor, name: Optional[str] = None) -> Tensor:
+        return self._add_layer(OperatorType.EW_ADD, self._name("add", name), [x, y], {})[0]
+
+    def subtract(self, x: Tensor, y: Tensor, name: Optional[str] = None) -> Tensor:
+        return self._add_layer(OperatorType.EW_SUB, self._name("sub", name), [x, y], {})[0]
+
+    def multiply(self, x: Tensor, y: Tensor, name: Optional[str] = None) -> Tensor:
+        return self._add_layer(OperatorType.EW_MUL, self._name("mul", name), [x, y], {})[0]
+
+    def divide(self, x: Tensor, y: Tensor, name: Optional[str] = None) -> Tensor:
+        return self._add_layer(OperatorType.EW_DIV, self._name("div", name), [x, y], {})[0]
+
+    def max(self, x: Tensor, y: Tensor, name: Optional[str] = None) -> Tensor:
+        return self._add_layer(OperatorType.EW_MAX, self._name("max", name), [x, y], {})[0]
+
+    def min(self, x: Tensor, y: Tensor, name: Optional[str] = None) -> Tensor:
+        return self._add_layer(OperatorType.EW_MIN, self._name("min", name), [x, y], {})[0]
+
+    def _unary(self, op: OperatorType, x: Tensor, name: Optional[str], **attrs) -> Tensor:
+        return self._add_layer(op, self._name(op.value, name), [x], attrs)[0]
+
+    def relu(self, x: Tensor, name: Optional[str] = None) -> Tensor:
+        return self._unary(OperatorType.RELU, x, name)
+
+    def sigmoid(self, x: Tensor, name: Optional[str] = None) -> Tensor:
+        return self._unary(OperatorType.SIGMOID, x, name)
+
+    def tanh(self, x: Tensor, name: Optional[str] = None) -> Tensor:
+        return self._unary(OperatorType.TANH, x, name)
+
+    def elu(self, x: Tensor, name: Optional[str] = None) -> Tensor:
+        return self._unary(OperatorType.ELU, x, name)
+
+    def gelu(self, x: Tensor, name: Optional[str] = None) -> Tensor:
+        return self._unary(OperatorType.GELU, x, name)
+
+    def exp(self, x: Tensor, name: Optional[str] = None) -> Tensor:
+        return self._unary(OperatorType.EXP, x, name)
+
+    def sin(self, x: Tensor, name: Optional[str] = None) -> Tensor:
+        return self._unary(OperatorType.SIN, x, name)
+
+    def cos(self, x: Tensor, name: Optional[str] = None) -> Tensor:
+        return self._unary(OperatorType.COS, x, name)
+
+    def rsqrt(self, x: Tensor, name: Optional[str] = None) -> Tensor:
+        return self._unary(OperatorType.RSQRT, x, name)
+
+    def pow(self, x: Tensor, exponent: float, name: Optional[str] = None) -> Tensor:
+        return self._unary(OperatorType.POW, x, name, exponent=exponent)
+
+    def identity(self, x: Tensor, name: Optional[str] = None) -> Tensor:
+        return self._unary(OperatorType.IDENTITY, x, name)
+
+    def scalar_multiply(self, x: Tensor, scalar: float, name: Optional[str] = None) -> Tensor:
+        return self._unary(OperatorType.SCALAR_MULTIPLY, x, name, scalar=scalar)
+
+    def scalar_add(self, x: Tensor, scalar: float, name: Optional[str] = None) -> Tensor:
+        return self._unary(OperatorType.SCALAR_ADD, x, name, scalar=scalar)
+
+    def scalar_sub(self, x: Tensor, scalar: float, name: Optional[str] = None) -> Tensor:
+        return self._unary(OperatorType.SCALAR_SUB, x, name, scalar=scalar)
+
+    def scalar_true_divide(self, x: Tensor, scalar: float, name: Optional[str] = None) -> Tensor:
+        return self._unary(OperatorType.SCALAR_TRUE_DIV, x, name, scalar=scalar)
 
     # ---------------------------------------------------------------- compile
     def compile(self, optimizer: Optional[Optimizer] = None,
@@ -351,19 +554,20 @@ class FFModel:
         return self.executor
 
     def get_weights(self) -> Dict[str, Dict[str, np.ndarray]]:
-        """Host copy of every weight, ``{layer: {weight: np.ndarray}}``:
-        copies, never views of the live parameters (on the CPU too)."""
+        """Host copy of every weight, parameters and state,
+        ``{layer: {weight: np.ndarray}}``: copies, never views of the live
+        tensors (on the CPU too)."""
         ex = self._require_executor()
-        names = ex.param_names()
+        named = ex.weight_tensors()
         out: Dict[str, Dict[str, np.ndarray]] = {}
-        for (lname, w), arr in zip(names, _host_copies(ex.param_list())):
+        for (lname, w), arr in zip(named, _host_copies(list(named.values()))):
             out.setdefault(lname, {})[w] = arr
         return out
 
     def _weight_writes(self, weights: Mapping[str, Mapping[str, Any]]):
         """Check ``weights`` against the model's and return the writes."""
         ex = self._require_executor()
-        want = {(l, w): t for l, ws in ex.params.items() for w, t in ws.items()}
+        want = ex.weight_tensors()
         got = {(l, w): np.asarray(a) for l, ws in weights.items() for w, a in ws.items()}
         missing = sorted("/".join(k) for k in set(want) - set(got))
         extra = sorted("/".join(k) for k in set(got) - set(want))
@@ -376,12 +580,14 @@ class FFModel:
         return [(want[key], arr) for key, arr in got.items()]
 
     def set_weights(self, weights: Mapping[str, Mapping[str, Any]]) -> None:
-        """Write every weight from ``{layer: {weight: array}}`` (the JAX
-        ``get_weights()`` layout).  Raises ``ValueError`` on a missing,
-        extra or mis-shaped entry before anything is written."""
+        """Write every weight, parameters and state, from
+        ``{layer: {weight: array}}`` (the JAX ``get_weights()`` layout).
+        Raises ``ValueError`` on a missing, extra or mis-shaped entry
+        before anything is written."""
         self._require_executor().apply_writes(self._weight_writes(weights))
 
     def num_parameters(self) -> int:
+        """Elements of the trainable parameters (state not counted)."""
         ex = self._require_executor()
         return sum(t.numel() for ws in ex.params.values() for t in ws.values())
 
@@ -593,10 +799,11 @@ class FFModel:
         ex = self._require_executor()
         keys: List[str] = []
         tensors: List[torch.Tensor] = []
-        for lname, ws in ex.params.items():
-            for wname, t in ws.items():
-                keys.append(f"params/{lname}/{wname}")
-                tensors.append(t)
+        for prefix, tree in (("params", ex.params), ("state", ex.state)):
+            for lname, ws in tree.items():
+                for wname, t in ws.items():
+                    keys.append(f"{prefix}/{lname}/{wname}")
+                    tensors.append(t)
         named = ex.opt_state_by_name()
         for slot, tree in named.items():
             if slot == "step":
@@ -618,8 +825,8 @@ class FFModel:
         return flat, manifest
 
     def save_checkpoint(self, path: str) -> str:
-        """Weights, optimizer state, step count and the manifest in one
-        atomically written ``.npz``; returns the path written (``.npz``
+        """Weights (parameters and state), optimizer state, step count
+        and the manifest in one atomically written ``.npz``; returns the path written (``.npz``
         appended when missing)."""
         flat, manifest = self._snapshot_checkpoint()
         return _write_checkpoint_atomic(path, flat, manifest)
@@ -669,7 +876,7 @@ class FFModel:
                 okey, rest = rest.split("/", 1)
                 lname, wname = rest.rsplit("/", 1)
                 opt.setdefault(okey, {}).setdefault(lname, {})[wname] = arr
-            elif prefix == "params":
+            elif prefix in ("params", "state"):
                 lname, wname = rest.rsplit("/", 1)
                 weights.setdefault(lname, {})[wname] = arr
             else:

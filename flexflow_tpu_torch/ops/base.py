@@ -2,9 +2,11 @@
 
 Counterpart of ``flexflow_tpu/ops/base.py``.  Each op is an
 :class:`OpDef`: ``infer`` (output shapes and dtypes), ``weights`` (the
-parameters it declares) and ``forward`` (PyTorch on the layer's inputs;
-autograd derives the backward, except where an op calls a kernel with a
-backward of its own).  :class:`OpContext` carries what a forward needs
+parameters and state it declares), ``forward`` (PyTorch on the layer's
+inputs; autograd derives the backward, except where an op calls a
+kernel with a backward of its own) and, for an op with state,
+``state_update`` (the state's new values from a training step's
+inputs).  :class:`OpContext` carries what a forward needs
 besides its inputs: the training flag, the device, a ``torch.Generator``
 on that device and a per-layer seed for kernels that hash their own
 randomness.  It carries no mesh: the port runs on one device.
@@ -30,12 +32,16 @@ ShapeDtype = Tuple[Tuple[int, ...], DataType]
 
 @dataclasses.dataclass
 class WeightSpec:
-    """One parameter an op declares."""
+    """One weight an op declares: a parameter, or with ``trainable=False``
+    executor state (BatchNorm's running stats, ``Cache``'s last batch),
+    which takes no gradient and no optimizer slot and which the op's
+    ``state_update`` rewrites in a training step."""
 
     name: str
     shape: Tuple[int, ...]
     dtype: DataType
     initializer: Initializer
+    trainable: bool = True
 
 
 class OpContext:

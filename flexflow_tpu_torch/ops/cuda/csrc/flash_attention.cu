@@ -136,7 +136,7 @@ __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, float* __restrict__ out,
                  float* __restrict__ lse, int sq, int sk, int causal, float scale, float rate,
-                 float keep, uint32_t seed) {
+                 float keep, uint32_t seed, int bh0) {
   constexpr int LD = D + 1;
   constexpr int kAcc = D / 16;
   extern __shared__ float smem[];
@@ -145,7 +145,7 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   float* vs = ks + kTile * LD;   // [kTile][LD]
   float* ps = vs + kTile * LD;   // [kTile][kPLd]
 
-  const int bh = blockIdx.y;
+  const int bh = bh0 + blockIdx.y;  // the launch's first row: see launch()
   const int q0 = blockIdx.x * kTile;
   const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
   const int off = sk - sq;
@@ -257,7 +257,7 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
                     const float* __restrict__ v,
                     const float* __restrict__ dout, const float* __restrict__ lse,
                     const float* __restrict__ delta, float* __restrict__ dq, int sq, int sk,
-                    int causal, float scale, float rate, float keep, uint32_t seed) {
+                    int causal, float scale, float rate, float keep, uint32_t seed, int bh0) {
   constexpr int LD = D + 1;
   constexpr int kAcc = D / 16;
   extern __shared__ float smem[];
@@ -267,7 +267,7 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
   float* vs = ks + kTile * LD;     // [kTile][LD]
   float* dss = vs + kTile * LD;    // [kTile][kPLd]
 
-  const int bh = blockIdx.y;
+  const int bh = bh0 + blockIdx.y;  // the launch's first row: see launch()
   const int q0 = blockIdx.x * kTile;
   const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
   const int off = sk - sq;
@@ -377,7 +377,7 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      const float* __restrict__ delta, float* __restrict__ dk,
                      float* __restrict__ dv,
                      int sq, int sk, int causal, float scale, float rate, float keep,
-                     uint32_t seed) {
+                     uint32_t seed, int bh0) {
   constexpr int LD = D + 1;
   constexpr int kAcc = D / 16;
   extern __shared__ float smem[];
@@ -390,7 +390,7 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
   float* lse_s = dst + kTile * kPLd;  // [kTile]
   float* delta_s = lse_s + kTile;     // [kTile]
 
-  const int bh = blockIdx.y;
+  const int bh = bh0 + blockIdx.y;  // the launch's first row: see launch()
   const int k0 = blockIdx.x * kTile;
   const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
   const int off = sk - sq;
@@ -607,14 +607,14 @@ __global__ void __launch_bounds__(kMmaThreads)
 flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                      const bf16* __restrict__ v, bf16* __restrict__ out,
                      float* __restrict__ lse, int sq, int sk, int causal, float scale,
-                     float rate, float keep, uint32_t seed) {
+                     float rate, float keep, uint32_t seed, int bh0) {
   constexpr int LD = D + 8;
   constexpr int KD = D / 16, ND = D / 8, NK = kTile / 8;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* ks = reinterpret_cast<bf16*>(smem_raw);  // [kTile][LD]
   bf16* vs = ks + kTile * LD;                     // [kTile][LD]
 
-  const int bh = blockIdx.y;
+  const int bh = bh0 + blockIdx.y;  // the launch's first row: see launch()
   const int q0 = blockIdx.x * kMmaRows;
   const int warp = threadIdx.x / 32, g = (threadIdx.x % 32) / 4, t = threadIdx.x % 4;
   const int off = sk - sq;
@@ -1020,7 +1020,7 @@ __global__ void __launch_bounds__(128 * NWG, wgmma_min_blocks(D, NWG, BN))
 flash_fwd_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                        const bf16* __restrict__ v, bf16* __restrict__ out,
                        float* __restrict__ lse, int sq, int sk, int causal, float scale,
-                       float rate, float keep, uint32_t seed) {
+                       float rate, float keep, uint32_t seed, int bh0) {
   constexpr int ND = D / 8, NK = BN / 8;
   constexpr uint32_t kQBytes = 64 * D * 2;   // one warpgroup's Q tile
   constexpr uint32_t kKVBytes = BN * D * 2;  // one K or V tile
@@ -1029,7 +1029,7 @@ flash_fwd_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const uint32_t sq_base = (smem_u32(smem_raw) + 1023u) & ~1023u;
   const uint32_t kv_base = sq_base + NWG * kQBytes;
 
-  const int bh = blockIdx.y;
+  const int bh = bh0 + blockIdx.y;  // the launch's first row: see launch()
   const int wg = threadIdx.x / 128;
   const int warp = (threadIdx.x % 128) / 32, g = (threadIdx.x % 32) / 4;
   const int q0 = blockIdx.x * 64 * NWG;  // the block's first row
@@ -1157,7 +1157,7 @@ flash_bwd_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                         const bf16* __restrict__ v, const bf16* __restrict__ dout,
                         const float* __restrict__ lse, const float* __restrict__ delta,
                         bf16* __restrict__ dq, int sq, int sk, int causal, float scale,
-                        float rate, float keep, uint32_t seed) {
+                        float rate, float keep, uint32_t seed, int bh0) {
   constexpr int LD = D + 8;
   constexpr int KD = D / 16, ND = D / 8, NK = kTile / 8;
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -1166,7 +1166,7 @@ flash_bwd_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   bf16* ks = dos + kMmaRows * LD;                // [kTile][LD]
   bf16* vs = ks + kTile * LD;                    // [kTile][LD]
 
-  const int bh = blockIdx.y;
+  const int bh = bh0 + blockIdx.y;  // the launch's first row: see launch()
   const int q0 = blockIdx.x * kMmaRows;
   const int warp = threadIdx.x / 32, g = (threadIdx.x % 32) / 4, t = threadIdx.x % 4;
   const int off = sk - sq;
@@ -1266,7 +1266,7 @@ flash_bwd_dkv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                          const bf16* __restrict__ v, const bf16* __restrict__ dout,
                          const float* __restrict__ lse, const float* __restrict__ delta,
                          bf16* __restrict__ dk, bf16* __restrict__ dv, int sq, int sk,
-                         int causal, float scale, float rate, float keep, uint32_t seed) {
+                         int causal, float scale, float rate, float keep, uint32_t seed, int bh0) {
   constexpr int LD = D + 8;
   constexpr int NQ = mma_dkv_q_tile<D>();
   constexpr int KD = D / 16, ND = D / 8, NJ = NQ / 8;
@@ -1278,7 +1278,7 @@ flash_bwd_dkv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   float* lse_s = reinterpret_cast<float*>(dos + NQ * LD);  // [NQ]
   float* delta_s = lse_s + NQ;                              // [NQ]
 
-  const int bh = blockIdx.y;
+  const int bh = bh0 + blockIdx.y;  // the launch's first row: see launch()
   const int k0 = blockIdx.x * kMmaRows;
   const int warp = threadIdx.x / 32, g = (threadIdx.x % 32) / 4, t = threadIdx.x % 4;
   const int off = sk - sq;
@@ -1540,7 +1540,7 @@ flash_bwd_dq_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
                           const bf16* __restrict__ v, const bf16* __restrict__ dout,
                           const float* __restrict__ lse, const float* __restrict__ delta,
                           bf16* __restrict__ dq, int sq, int sk, int causal, float scale,
-                          float rate, float keep, uint32_t seed) {
+                          float rate, float keep, uint32_t seed, int bh0) {
   constexpr int NWG = kBwdWarpgroups, NS = kBwdStages, BN = kBwdKeys, NB = BN / 8;
   constexpr uint32_t kRowsBytes = 64 * D * 2;  // one warpgroup's Q or dO tile
   constexpr uint32_t kKVBytes = BN * D * 2;    // one K or V tile
@@ -1550,7 +1550,7 @@ flash_bwd_dq_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
   const uint32_t do_base = q_base + NWG * kRowsBytes;
   const uint32_t kv_base = do_base + NWG * kRowsBytes;
 
-  const int bh = blockIdx.y;
+  const int bh = bh0 + blockIdx.y;  // the launch's first row: see launch()
   const int wg = threadIdx.x / 128;
   const int warp = (threadIdx.x % 128) / 32, g = (threadIdx.x % 32) / 4, t = threadIdx.x % 4;
   const int q0 = blockIdx.x * 64 * NWG;  // the block's first row
@@ -1659,7 +1659,8 @@ flash_bwd_dkv_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ 
                            const bf16* __restrict__ v, const bf16* __restrict__ dout,
                            const float* __restrict__ lse, const float* __restrict__ delta,
                            bf16* __restrict__ dk, bf16* __restrict__ dv, int sq, int sk,
-                           int causal, float scale, float rate, float keep, uint32_t seed) {
+                           int causal, float scale, float rate, float keep, uint32_t seed,
+                           int bh0) {
   constexpr int NWG = kBwdWarpgroups, NS = kBwdStages, BQ = wgmma_dkv_q_tile<D>(), NB = BQ / 8;
   constexpr uint32_t kKeyBytes = 64 * D * 2;  // one warpgroup's K or V tile
   constexpr uint32_t kQBytes = BQ * D * 2;    // one Q or dO tile
@@ -1671,7 +1672,7 @@ flash_bwd_dkv_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ 
   const uint32_t v_base = k_base + NWG * kKeyBytes;
   const uint32_t ring = v_base + NWG * kKeyBytes;
 
-  const int bh = blockIdx.y;
+  const int bh = bh0 + blockIdx.y;  // the launch's first row: see launch()
   const int wg = threadIdx.x / 128;
   const int warp = (threadIdx.x % 128) / 32, g = (threadIdx.x % 32) / 4, t = threadIdx.x % 4;
   const int k0 = blockIdx.x * 64 * NWG;  // the block's first key
@@ -1972,7 +1973,7 @@ flash_bwd_dq_tf32_kernel(const float* __restrict__ q, const float* __restrict__ 
                          const float* __restrict__ v, const float* __restrict__ dout,
                          const float* __restrict__ lse, const float* __restrict__ delta,
                          float* __restrict__ dq, int sq, int sk, int causal, float scale,
-                         float rate, float keep, uint32_t seed) {
+                         float rate, float keep, uint32_t seed, int bh0) {
   constexpr int NS = kTfStages, BN = kTfKeys, NB = BN / 8;
   constexpr int kRowsF = kTfRows * D;  // floats of the block's Q (or dO) tile
   constexpr int kTileF = BN * D;       // floats of one K (or V) tile
@@ -1982,7 +1983,7 @@ flash_bwd_dq_tf32_kernel(const float* __restrict__ q, const float* __restrict__ 
   float* dos = qs + kRowsF;
   float* ring = dos + kRowsF;
 
-  const int bh = blockIdx.y;
+  const int bh = bh0 + blockIdx.y;  // the launch's first row: see launch()
   const int warp = threadIdx.x / 32, g = (threadIdx.x % 32) / 4, t = threadIdx.x % 4;
   const int q0 = blockIdx.x * kTfRows;  // the block's first row
   const int w0 = q0 + 16 * warp;        // this warp's first row
@@ -2059,7 +2060,7 @@ flash_bwd_dkv_tf32_kernel(const float* __restrict__ q, const float* __restrict__
                           const float* __restrict__ v, const float* __restrict__ dout,
                           const float* __restrict__ lse, const float* __restrict__ delta,
                           float* __restrict__ dk, float* __restrict__ dv, int sq, int sk,
-                          int causal, float scale, float rate, float keep, uint32_t seed) {
+                          int causal, float scale, float rate, float keep, uint32_t seed, int bh0) {
   constexpr int NS = kTfStages, BQ = tf32_dkv_q_tile<D>(), NB = BQ / 8;
   constexpr int kRowsF = kTfRows * D;             // floats of the block's K (or V) tile
   constexpr int kTileF = BQ * D;                  // floats of one Q (or dO) tile
@@ -2070,7 +2071,7 @@ flash_bwd_dkv_tf32_kernel(const float* __restrict__ q, const float* __restrict__
   float* vs = ks + kRowsF;
   float* ring = vs + kRowsF;
 
-  const int bh = blockIdx.y;
+  const int bh = bh0 + blockIdx.y;  // the launch's first row: see launch()
   const int warp = threadIdx.x / 32, g = (threadIdx.x % 32) / 4, t = threadIdx.x % 4;
   const int k0 = blockIdx.x * kTfRows;  // the block's first key
   const int kw0 = k0 + 16 * warp;       // this warp's first key
@@ -2245,7 +2246,7 @@ __global__ void __launch_bounds__(kTfThreads, kTfMinBlocks)
 flash_fwd_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                       const float* __restrict__ v, float* __restrict__ out,
                       float* __restrict__ lse, int sq, int sk, int causal, float scale,
-                      float rate, float keep, uint32_t seed) {
+                      float rate, float keep, uint32_t seed, int bh0) {
   constexpr int NS = kTfStages, BN = tf32_fwd_keys<D>(), NB = BN / 8, NC = tf32_fwd_cols<D>();
   constexpr int kRowsF = kTfRows * D;  // floats of the block's Q tile
   constexpr int kTileF = BN * D;       // floats of one K (or V) tile
@@ -2254,7 +2255,7 @@ flash_fwd_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   float* qs = tf_smem;
   float* ring = qs + kRowsF;
 
-  const int bh = blockIdx.y;
+  const int bh = bh0 + blockIdx.y;  // the launch's first row: see launch()
   const int warp = threadIdx.x / 32, g = (threadIdx.x % 32) / 4, t = threadIdx.x % 4;
   const int q0 = blockIdx.x * kTfRows;  // the block's first row
   const int w0 = q0 + 16 * warp;        // this warp's first row
@@ -2323,10 +2324,18 @@ flash_fwd_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 constexpr size_t tile_bytes(int d) { return sizeof(float) * kTile * (d + 1); }
 constexpr size_t p_bytes() { return sizeof(float) * kTile * kPLd; }
 
+// the grid's y extent is at most 65535, so a launch covers at most that many
+// of the B*H rows: rows bh0 .. bh0 + bh - 1, each kernel reading its row as
+// bh0 + blockIdx.y, which indexes every tensor, lse, delta and the dropout hash
+// as one launch over all rows would.  The caller launches B*H rows in chunks
+// (flash_attention.py, GRID_Y_MAX).
+constexpr int kGridYMax = 65535;
+
 // launch `kernel` on grid (n_tiles, bh) with `smem` bytes of dynamic shared
-// memory; an attribute refusal is cleared so the next launch does not see it
+// memory for rows bh0 .. bh0 + bh - 1; an attribute refusal is cleared so the
+// next launch does not see it
 template <typename Kernel, typename... Args>
-cudaError_t launch(Kernel kernel, int n_tiles, int bh, int threads, size_t smem,
+cudaError_t launch(Kernel kernel, int n_tiles, int bh0, int bh, int threads, size_t smem,
                    cudaStream_t stream, Args... args) {
   if (smem > 48 * 1024) {
     cudaError_t err =
@@ -2336,24 +2345,28 @@ cudaError_t launch(Kernel kernel, int n_tiles, int bh, int threads, size_t smem,
       return err;
     }
   }
-  kernel<<<dim3(n_tiles, bh), threads, smem, stream>>>(args...);
+  kernel<<<dim3(n_tiles, bh), threads, smem, stream>>>(args..., bh0);
   return cudaGetLastError();
 }
 
-bool bad_shape(int bh, int sq, int sk, int d) {
-  return bh < 1 || bh > 65535 || sq < kTile || sk < kTile || sq % kTile || sk % kTile ||
-         (d != 64 && d != 128);
+// a kernel takes its row as an int (bh0 + blockIdx.y) and widens it to size_t
+// before it multiplies by S; the flattened (BH * S) index must fit an int too,
+// which every shape that fits in the card's memory does
+bool bad_shape(int bh0, int bh, int sq, int sk, int d) {
+  const long long rows = (long long)bh0 + bh;
+  return bh0 < 0 || bh < 1 || bh > kGridYMax || rows * (sq > sk ? sq : sk) > 2147483647LL ||
+         sq < kTile || sk < kTile || sq % kTile || sk % kTile || (d != 64 && d != 128);
 }
 
 constexpr size_t mma_tile_bytes(int d, int rows) { return sizeof(bf16) * rows * (d + 8); }
 
 template <int D, int NWG, int BN>
 cudaError_t fwd_wgmma(const bf16* q, const bf16* k, const bf16* v, bf16* out, float* lse,
-                      int bh, int sq, int sk, int causal, float scale, float rate, float keep,
-                      uint32_t seed, cudaStream_t s) {
+                      int bh0, int bh, int sq, int sk, int causal, float scale, float rate,
+                      float keep, uint32_t seed, cudaStream_t s) {
   if (sk % BN) return cudaErrorInvalidValue;  // whole key tiles only
   const size_t smem = 2 * (NWG * 64 + 2 * 2 * BN) * (size_t)D + 1024;
-  return launch(flash_fwd_wgmma_kernel<D, NWG, BN>, (sq + 64 * NWG - 1) / (64 * NWG), bh,
+  return launch(flash_fwd_wgmma_kernel<D, NWG, BN>, (sq + 64 * NWG - 1) / (64 * NWG), bh0, bh,
                 128 * NWG, smem, s, q, k, v, out, lse, sq, sk, causal, scale, rate, keep, seed);
 }
 
@@ -2361,34 +2374,35 @@ cudaError_t fwd_wgmma(const bf16* q, const bf16* k, const bf16* v, bf16* out, fl
 // `first_design` launches the first design of either (the mma.sync kernel for
 // bfloat16, the FMA kernel for float32)
 template <typename T, int D>
-cudaError_t fwd(const void* q, const void* k, const void* v, void* out, float* lse, int bh,
-                int sq, int sk, int causal, float scale, float rate, float keep, uint32_t seed,
-                int first_design, cudaStream_t s) {
+cudaError_t fwd(const void* q, const void* k, const void* v, void* out, float* lse, int bh0,
+                int bh, int sq, int sk, int causal, float scale, float rate, float keep,
+                uint32_t seed, int first_design, cudaStream_t s) {
   if constexpr (std::is_same<T, bf16>::value) {
     const bf16* qp = static_cast<const bf16*>(q);
     const bf16* kp = static_cast<const bf16*>(k);
     const bf16* vp = static_cast<const bf16*>(v);
     bf16* op = static_cast<bf16*>(out);
     if (first_design)
-      return launch(flash_fwd_mma_kernel<D>, sq / kMmaRows, bh, kMmaThreads,
+      return launch(flash_fwd_mma_kernel<D>, sq / kMmaRows, bh0, bh, kMmaThreads,
                     2 * mma_tile_bytes(D, kTile), s, qp, kp, vp, op, lse, sq, sk, causal,
                     scale, rate, keep, seed);
     // two warpgroups per block; 64-key tiles at D 64, 128-key tiles at D 128
     // (the faster of the two on an H100 at each head dim)
-    return fwd_wgmma<D, 2, D == 64 ? 64 : 128>(qp, kp, vp, op, lse, bh, sq, sk, causal, scale,
-                                                rate, keep, seed, s);
+    return fwd_wgmma<D, 2, D == 64 ? 64 : 128>(qp, kp, vp, op, lse, bh0, bh, sq, sk, causal,
+                                                scale, rate, keep, seed, s);
   } else {
     const float* qp = static_cast<const float*>(q);
     const float* kp = static_cast<const float*>(k);
     const float* vp = static_cast<const float*>(v);
     float* op = static_cast<float*>(out);
     if (first_design)
-      return launch(flash_fwd_kernel<D>, sq / kTile, bh, kThreads, 3 * tile_bytes(D) + p_bytes(),
+      return launch(flash_fwd_kernel<D>, sq / kTile, bh0, bh, kThreads,
+                    3 * tile_bytes(D) + p_bytes(),
                     s, qp, kp, vp, op, lse, sq, sk, causal, scale, rate, keep, seed);
     // Q, and the stages of K and V
     const size_t smem = sizeof(float) * (kTfRows + kTfStages * 2 * tf32_fwd_keys<D>()) * (size_t)D;
-    return launch(flash_fwd_tf32_kernel<D>, sq / kTfRows, bh, kTfThreads, smem, s, qp, kp, vp,
-                  op, lse, sq, sk, causal, scale, rate, keep, seed);
+    return launch(flash_fwd_tf32_kernel<D>, sq / kTfRows, bh0, bh, kTfThreads, smem, s, qp, kp,
+                  vp, op, lse, sq, sk, causal, scale, rate, keep, seed);
   }
 }
 
@@ -2397,7 +2411,7 @@ cudaError_t fwd(const void* q, const void* k, const void* v, void* out, float* l
 // mma.sync kernels for bfloat16, the FMA kernels for float32)
 template <typename T, int D>
 cudaError_t bwd_dq(const void* q, const void* k, const void* v, const void* dout,
-                   const float* lse, const float* delta, void* dq, int bh, int sq, int sk,
+                   const float* lse, const float* delta, void* dq, int bh0, int bh, int sq, int sk,
                    int causal, float scale, float rate, float keep, uint32_t seed,
                    int first_design, cudaStream_t s) {
   if constexpr (std::is_same<T, bf16>::value) {
@@ -2407,15 +2421,15 @@ cudaError_t bwd_dq(const void* q, const void* k, const void* v, const void* dout
     const bf16* dp = static_cast<const bf16*>(dout);
     bf16* out = static_cast<bf16*>(dq);
     if (first_design)
-      return launch(flash_bwd_dq_mma_kernel<D>, sq / kMmaRows, bh, kMmaThreads,
+      return launch(flash_bwd_dq_mma_kernel<D>, sq / kMmaRows, bh0, bh, kMmaThreads,
                     2 * mma_tile_bytes(D, kMmaRows) + 2 * mma_tile_bytes(D, kTile), s, qp, kp,
                     vp, dp, lse, delta, out, sq, sk, causal, scale, rate, keep, seed);
     constexpr int rows = 64 * kBwdWarpgroups;
     // Q and dO of each warpgroup, the stages of K and V, and the alignment slack
     const size_t smem = 2 * (2 * rows + kBwdStages * 2 * kBwdKeys) * (size_t)D + 1024;
-    return launch(flash_bwd_dq_wgmma_kernel<D>, (sq + rows - 1) / rows, bh, 128 * kBwdWarpgroups,
-                  smem, s, qp, kp, vp, dp, lse, delta, out, sq, sk, causal, scale, rate, keep,
-                  seed);
+    return launch(flash_bwd_dq_wgmma_kernel<D>, (sq + rows - 1) / rows, bh0, bh,
+                  128 * kBwdWarpgroups, smem, s, qp, kp, vp, dp, lse, delta, out, sq, sk,
+                  causal, scale, rate, keep, seed);
   } else {
     const float* qp = static_cast<const float*>(q);
     const float* kp = static_cast<const float*>(k);
@@ -2423,20 +2437,20 @@ cudaError_t bwd_dq(const void* q, const void* k, const void* v, const void* dout
     const float* dp = static_cast<const float*>(dout);
     float* out = static_cast<float*>(dq);
     if (first_design)
-      return launch(flash_bwd_dq_kernel<D>, sq / kTile, bh, kThreads,
+      return launch(flash_bwd_dq_kernel<D>, sq / kTile, bh0, bh, kThreads,
                     4 * tile_bytes(D) + p_bytes(), s, qp, kp, vp, dp, lse, delta, out, sq, sk,
                     causal, scale, rate, keep, seed);
     // Q and dO, and the stages of K and V
     const size_t smem = sizeof(float) * (2 * kTfRows + kTfStages * 2 * kTfKeys) * (size_t)D;
-    return launch(flash_bwd_dq_tf32_kernel<D>, sq / kTfRows, bh, kTfThreads, smem, s, qp, kp,
+    return launch(flash_bwd_dq_tf32_kernel<D>, sq / kTfRows, bh0, bh, kTfThreads, smem, s, qp, kp,
                   vp, dp, lse, delta, out, sq, sk, causal, scale, rate, keep, seed);
   }
 }
 
 template <typename T, int D>
 cudaError_t bwd_dkv(const void* q, const void* k, const void* v, const void* dout,
-                    const float* lse, const float* delta, void* dk, void* dv, int bh, int sq,
-                    int sk, int causal, float scale, float rate, float keep, uint32_t seed,
+                    const float* lse, const float* delta, void* dk, void* dv, int bh0, int bh,
+                    int sq, int sk, int causal, float scale, float rate, float keep, uint32_t seed,
                     int first_design, cudaStream_t s) {
   if constexpr (std::is_same<T, bf16>::value) {
     const bf16* qp = static_cast<const bf16*>(q);
@@ -2447,7 +2461,7 @@ cudaError_t bwd_dkv(const void* q, const void* k, const void* v, const void* dou
     bf16* dvp = static_cast<bf16*>(dv);
     if (first_design) {
       constexpr int nq = mma_dkv_q_tile<D>();
-      return launch(flash_bwd_dkv_mma_kernel<D>, sk / kMmaRows, bh, kMmaThreads,
+      return launch(flash_bwd_dkv_mma_kernel<D>, sk / kMmaRows, bh0, bh, kMmaThreads,
                     2 * mma_tile_bytes(D, kMmaRows) + 2 * mma_tile_bytes(D, nq) +
                         2 * sizeof(float) * nq,
                     s, qp, kp, vp, dp, lse, delta, dkp, dvp, sq, sk, causal, scale, rate, keep,
@@ -2458,7 +2472,7 @@ cudaError_t bwd_dkv(const void* q, const void* k, const void* v, const void* dou
     // and delta rows on 1024 bytes), and the alignment slack
     const size_t smem = 2 * (2 * rows + kBwdStages * 2 * wgmma_dkv_q_tile<D>()) * (size_t)D +
                         (kBwdStages + 1) * 1024;
-    return launch(flash_bwd_dkv_wgmma_kernel<D>, (sk + rows - 1) / rows, bh,
+    return launch(flash_bwd_dkv_wgmma_kernel<D>, (sk + rows - 1) / rows, bh0, bh,
                   128 * kBwdWarpgroups, smem, s, qp, kp, vp, dp, lse, delta, dkp, dvp, sq, sk,
                   causal, scale, rate, keep, seed);
   } else {
@@ -2469,14 +2483,14 @@ cudaError_t bwd_dkv(const void* q, const void* k, const void* v, const void* dou
     float* dkp = static_cast<float*>(dk);
     float* dvp = static_cast<float*>(dv);
     if (first_design)
-      return launch(flash_bwd_dkv_kernel<D>, sk / kTile, bh, kThreads,
+      return launch(flash_bwd_dkv_kernel<D>, sk / kTile, bh0, bh, kThreads,
                     4 * tile_bytes(D) + 2 * p_bytes() + 2 * sizeof(float) * kTile, s, qp, kp,
                     vp, dp, lse, delta, dkp, dvp, sq, sk, causal, scale, rate, keep, seed);
     // K and V, and the stages of Q and dO with their lse and delta rows
     constexpr int nq = tf32_dkv_q_tile<D>();
     const size_t smem =
         sizeof(float) * (2 * kTfRows * (size_t)D + kTfStages * (2 * nq * (size_t)D + 2 * nq));
-    return launch(flash_bwd_dkv_tf32_kernel<D>, sk / kTfRows, bh, kTfThreads, smem, s, qp, kp,
+    return launch(flash_bwd_dkv_tf32_kernel<D>, sk / kTfRows, bh0, bh, kTfThreads, smem, s, qp, kp,
                   vp, dp, lse, delta, dkp, dvp, sq, sk, causal, scale, rate, keep, seed);
   }
 }
@@ -2490,42 +2504,43 @@ cudaError_t bwd_dkv(const void* q, const void* k, const void* v, const void* dou
 
 }  // namespace
 
-// q (bh, sq, d), k/v (bh, sk, d), out like q, lse float32 (bh, sq); sq and
-// sk multiples of 64, d 64 or 128; all contiguous, in one dtype.
+// q (BH, sq, d), k/v (BH, sk, d), out like q, lse float32 (BH, sq); sq and
+// sk multiples of 64, d 64 or 128; all contiguous, in one dtype.  One call runs
+// rows bh0 .. bh0 + bh - 1 of the BH, at most 65535 of them (see launch()).
 // `first_design` launches a kernel's first design in place of its redesign (for
 // timing the two side by side): the bfloat16 kernels' mma.sync designs in place
 // of wgmma, and the float32 kernels' FMA designs in place of 3xTF32.
 extern "C" int ff_flash_fwd(const void* q, const void* k, const void* v, void* out, void* lse,
-                            int bh, int sq, int sk, int d, int causal, float scale, float rate,
-                            float keep, unsigned int seed, int bf16_in, int first_design,
-                            void* stream) {
-  if (bad_shape(bh, sq, sk, d)) return static_cast<int>(cudaErrorInvalidValue);
+                            int bh0, int bh, int sq, int sk, int d, int causal, float scale,
+                            float rate, float keep, unsigned int seed, int bf16_in,
+                            int first_design, void* stream) {
+  if (bad_shape(bh0, bh, sq, sk, d)) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  FF_DISPATCH(fwd, q, k, v, out, static_cast<float*>(lse), bh, sq, sk, causal, scale, rate,
+  FF_DISPATCH(fwd, q, k, v, out, static_cast<float*>(lse), bh0, bh, sq, sk, causal, scale, rate,
               keep, seed, first_design, s);
 }
 
 extern "C" int ff_flash_bwd_dq(const void* q, const void* k, const void* v, const void* dout,
-                               const void* lse, const void* delta, void* dq, int bh, int sq,
-                               int sk, int d, int causal, float scale, float rate, float keep,
-                               unsigned int seed, int bf16_in, int first_design,
+                               const void* lse, const void* delta, void* dq, int bh0, int bh,
+                               int sq, int sk, int d, int causal, float scale, float rate,
+                               float keep, unsigned int seed, int bf16_in, int first_design,
                                void* stream) {
-  if (bad_shape(bh, sq, sk, d)) return static_cast<int>(cudaErrorInvalidValue);
+  if (bad_shape(bh0, bh, sq, sk, d)) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   FF_DISPATCH(bwd_dq, q, k, v, dout, static_cast<const float*>(lse),
-              static_cast<const float*>(delta), dq, bh, sq, sk, causal, scale, rate, keep, seed,
-              first_design, s);
+              static_cast<const float*>(delta), dq, bh0, bh, sq, sk, causal, scale, rate, keep,
+              seed, first_design, s);
 }
 
 extern "C" int ff_flash_bwd_dkv(const void* q, const void* k, const void* v, const void* dout,
-                                const void* lse, const void* delta, void* dk, void* dv, int bh,
-                                int sq, int sk, int d, int causal, float scale, float rate,
+                                const void* lse, const void* delta, void* dk, void* dv, int bh0,
+                                int bh, int sq, int sk, int d, int causal, float scale, float rate,
                                 float keep, unsigned int seed, int bf16_in,
                                 int first_design, void* stream) {
-  if (bad_shape(bh, sq, sk, d)) return static_cast<int>(cudaErrorInvalidValue);
+  if (bad_shape(bh0, bh, sq, sk, d)) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   FF_DISPATCH(bwd_dkv, q, k, v, dout, static_cast<const float*>(lse),
-              static_cast<const float*>(delta), dk, dv, bh, sq, sk, causal, scale, rate, keep,
+              static_cast<const float*>(delta), dk, dv, bh0, bh, sq, sk, causal, scale, rate, keep,
               seed, first_design, s);
 }
 

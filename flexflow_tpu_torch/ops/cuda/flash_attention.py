@@ -41,7 +41,11 @@ card take the same inputs: Sq and Sk multiples of 128 (the JAX
 are refused and the attention op takes ``sdpa`` for them), contiguous
 (B, H, S, D) tensors of one dtype.  ``block_q`` / ``block_k`` are
 accepted for the JAX signature and only checked to divide Sq / Sk: the
-kernels use their own 64-row tiles.
+kernels use their own 64-row tiles.  B * H has no limit of its own, as in
+the JAX kernels' grid: the grid's y extent holds at most ``GRID_Y_MAX``
+rows, so a call over more launches its kernel once per chunk of rows
+(:func:`bh_chunks`), each kernel reading its row as the chunk's first
+row plus ``blockIdx.y``; the call counts as one launch.
 """
 
 from __future__ import annotations
@@ -55,6 +59,7 @@ import torch
 
 __all__ = [
     "FlashAttention",
+    "GRID_Y_MAX",
     "HEAD_DIMS",
     "LAUNCHES",
     "NEG_INF",
@@ -68,6 +73,7 @@ __all__ = [
     "flash_bwd_dkv",
     "flash_bwd_dq",
     "flash_delta",
+    "bh_chunks",
     "flash_fwd",
     "kernel_takes",
     "uniform01",
@@ -79,6 +85,9 @@ LAUNCHES = {"fwd": 0, "dq": 0, "dkv": 0}
 
 NEG_INF = -1e30
 HEAD_DIMS = (64, 128)
+# the most B * H rows one launch takes (the grid's y extent); a call over
+# more rows launches its kernel once for each chunk of rows (bh_chunks)
+GRID_Y_MAX = 65535
 SEQ_MULTIPLE = 128
 _FLOATS = (torch.float32, torch.bfloat16)
 _M32 = 0xFFFFFFFF
@@ -252,8 +261,6 @@ def check_inputs(q, k, v, block_q: Optional[int] = None, block_k: Optional[int] 
     for name, s, blk in (("Sq", sq, block_q), ("Sk", sk, block_k)):
         if blk is not None and (blk < 1 or s % blk):
             raise ValueError(f"flash_attention: {name} = {s} is not divisible by block {blk}")
-    if B * H > 65535:
-        raise ValueError(f"flash_attention: B * H = {B * H} exceeds the grid's y limit")
     devs = {t.device for t in (q, k, v)}
     if len(devs) != 1 or next(iter(devs)).type not in ("cpu", "cuda"):
         raise ValueError(
@@ -269,8 +276,8 @@ def _library():
         from flexflow_tpu_torch.ops.cuda import load
 
         lib = load("flash_attention")
-        # bh, sq, sk, d, causal, scale, rate, keep, seed, bf16_in, first_design, stream
-        tail = [ctypes.c_int] * 5 + [ctypes.c_float] * 3 + [ctypes.c_uint32, ctypes.c_int,
+        # bh0, bh, sq, sk, d, causal, scale, rate, keep, seed, bf16_in, first_design, stream
+        tail = [ctypes.c_int] * 6 + [ctypes.c_float] * 3 + [ctypes.c_uint32, ctypes.c_int,
                                                              ctypes.c_int, ctypes.c_void_p]
         lib.ff_flash_fwd.argtypes = [ctypes.c_void_p] * 5 + tail
         lib.ff_flash_bwd_dq.argtypes = [ctypes.c_void_p] * 7 + tail
@@ -283,19 +290,33 @@ def _library():
     return _lib
 
 
+def bh_chunks(bh: int):
+    """``(first row, rows)`` of each launch over ``bh`` rows: at most
+    ``GRID_Y_MAX`` rows a launch, the grid's y limit."""
+    return [(b0, min(GRID_Y_MAX, bh - b0)) for b0 in range(0, bh, GRID_Y_MAX)]
+
+
+def _stream(device: torch.device) -> int:
+    with torch.cuda.device(device):
+        return torch.cuda.current_stream(device).cuda_stream
+
+
 def _launch(kind: str, fn, ptrs, q, sk, causal, dropout_rate, seed, *extra) -> None:
+    """One kernel call over all B * H rows, in launches of at most
+    ``GRID_Y_MAX`` rows (:func:`bh_chunks`); it counts as one launch."""
     if any(p % 16 for p in ptrs):
         raise ValueError(f"flash_attention {kind}: every tensor must be 16-byte aligned "
                          f"(the kernels copy rows in 16-byte pieces)")
     B, H, sq, d = q.shape
     rate, keep = _rates(dropout_rate)
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = fn(*ptrs, B * H, sq, sk, d, int(bool(causal)), 1.0 / math.sqrt(d), rate, keep,
+    stream = _stream(q.device)
+    for bh0, rows in bh_chunks(B * H):
+        rc = fn(*ptrs, bh0, rows, sq, sk, d, int(bool(causal)), 1.0 / math.sqrt(d), rate, keep,
                 int(seed) & 0xFFFFFFFF, int(q.dtype == torch.bfloat16), *extra, stream)
-    if rc != 0:
-        msg = _library().ff_flash_error_string(rc).decode(errors="replace")
-        raise RuntimeError(f"flash_attention {kind} kernel launch failed: {msg} (cudaError {rc})")
+        if rc != 0:
+            msg = _library().ff_flash_error_string(rc).decode(errors="replace")
+            raise RuntimeError(f"flash_attention {kind} kernel launch failed: {msg} "
+                               f"(cudaError {rc})")
     LAUNCHES[kind] += 1
 
 

@@ -1,9 +1,13 @@
-"""Linear (dense) layer.
+"""Linear (dense) layer and BatchMatmul.
 
-Counterpart of ``flexflow_tpu/ops/dense.py`` ``Linear``: the weight is
+Counterpart of ``flexflow_tpu/ops/dense.py``.  ``Linear``'s weight is
 ``kernel`` in the ``(in, out)`` layout, applied as ``x @ kernel``, with
 an optional ``bias`` and a fused activation.  GELU is ``jax.nn.gelu``'s
-default, the tanh approximation.
+default, the tanh approximation.  ``BatchMatmul`` is ``a[b] @ b[b]``;
+its ``a_seq_length_dim`` / ``b_seq_length_dim`` attributes are kept, and
+as in the JAX op they mask only under an iteration ``seq_length``, which
+the port's ``eval_batch`` does not take (incremental decoding is
+ROADMAP.md queue A item 3, part 3).
 """
 
 from __future__ import annotations
@@ -18,7 +22,7 @@ from flexflow_tpu_torch.initializer import default_bias_initializer, default_ker
 from flexflow_tpu_torch.ops.base import OpContext, OpDef, ShapeDtype, WeightSpec, register_op
 from flexflow_tpu_torch.tensor import Layer
 
-__all__ = ["apply_activation", "Linear"]
+__all__ = ["apply_activation", "Linear", "BatchMatmul"]
 
 
 def apply_activation(x: torch.Tensor, act: ActiMode) -> torch.Tensor:
@@ -59,4 +63,18 @@ class Linear(OpDef):
         return [apply_activation(y, layer.attrs.get("activation", ActiMode.NONE))]
 
 
+class BatchMatmul(OpDef):
+    op_type = OperatorType.BATCHMATMUL
+
+    def infer(self, layer: Layer) -> List[ShapeDtype]:
+        a, b = layer.inputs
+        if a.shape[:-2] != b.shape[:-2] or a.shape[-1] != b.shape[-2]:
+            raise ValueError(f"batch_matmul: {a.shape} @ {b.shape}")
+        return [(a.shape[:-1] + (b.shape[-1],), a.dtype)]
+
+    def forward(self, layer, params, inputs, ctx: OpContext):
+        return [torch.matmul(inputs[0], inputs[1])]
+
+
 register_op(Linear())
+register_op(BatchMatmul())

@@ -1,9 +1,10 @@
-"""LayerNorm, Softmax, Dropout.
+"""LayerNorm, RMSNorm, Softmax, Dropout.
 
 Counterpart of ``flexflow_tpu/ops/norm.py``.  LayerNorm normalises over
 the layer's ``axes`` with the biased variance and ``eps`` (default
 1e-5), then applies ``scale`` and ``bias`` (weights of the normalised
-shape).  Dropout draws its mask from the context's ``torch.Generator``:
+shape).  RMSNorm scales the last dim by ``rsqrt(mean(x^2) + eps)`` (eps
+1e-6) and its weight ``scale``.  Dropout draws its mask from the context's ``torch.Generator``:
 the same rate as the JAX op, not the same bits.
 """
 
@@ -18,7 +19,7 @@ from flexflow_tpu_torch.initializer import OnesInitializer, ZeroInitializer
 from flexflow_tpu_torch.ops.base import OpContext, OpDef, ShapeDtype, WeightSpec, register_op
 from flexflow_tpu_torch.tensor import Layer
 
-__all__ = ["LayerNorm", "Softmax", "Dropout"]
+__all__ = ["LayerNorm", "RMSNorm", "Softmax", "Dropout"]
 
 
 class LayerNorm(OpDef):
@@ -51,6 +52,23 @@ class LayerNorm(OpDef):
         return [y]
 
 
+class RMSNorm(OpDef):
+    op_type = OperatorType.RMS_NORM
+
+    def infer(self, layer: Layer) -> List[ShapeDtype]:
+        t = layer.inputs[0]
+        return [(t.shape, t.dtype)]
+
+    def weights(self, layer: Layer) -> List[WeightSpec]:
+        t = layer.inputs[0]
+        return [WeightSpec("scale", (t.shape[-1],), t.dtype, OnesInitializer())]
+
+    def forward(self, layer, params, inputs, ctx: OpContext):
+        x = inputs[0]
+        ms = torch.mean(x * x, dim=-1, keepdim=True)
+        return [x * torch.rsqrt(ms + layer.attrs.get("eps", 1e-6)) * params["scale"]]
+
+
 class Softmax(OpDef):
     op_type = OperatorType.SOFTMAX
 
@@ -81,5 +99,6 @@ class Dropout(OpDef):
 
 
 register_op(LayerNorm())
+register_op(RMSNorm())
 register_op(Softmax())
 register_op(Dropout())

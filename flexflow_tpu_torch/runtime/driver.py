@@ -24,6 +24,21 @@ and the device:
   ``--vocab`` 50257, batch 4, seq 1024), ``--steps`` train steps on
   next-token labels of a stride-3 cycle as ``examples/gpt/gpt.py`` takes
   them, then ``--generate N`` greedy tokens by ``gpt_generate``.
+* the model zoo, one mode per ``examples/`` app, each trained by
+  ``FFModel.fit`` on synthetic data drawn from one numpy seed as its
+  example draws it, with its example's defaults (:data:`ZOO`):
+  ``--model mlp`` (``examples/mlp/mnist_mlp.py``: 784-512-512-10 on
+  Gaussian blobs), ``--model alexnet|resnet|resnext50|inception``
+  (``examples/cnn/train_cnn.py``; ``--model cnn --arch X`` too,
+  ``--size``, ``--classes``), ``--model dlrm|xdl``
+  (``examples/dlrm/dlrm.py``; ``--model dlrm --arch xdl`` too,
+  ``--embedding-size``, ``--num-tables``, ``--sparse-feature-size``,
+  ``--bag-size``, ``--data FILE`` for a local Criteo-format file),
+  ``--model candle_uno`` (``examples/candle_uno/candle_uno.py``),
+  ``--model moe`` (``examples/moe/moe.py``; ``--fused`` for the batched
+  experts op) and ``--model moe_encoder`` (the MoE encoder at hidden 64,
+  seq 64).  ``--batch``, ``--epochs``, ``--samples`` and ``--lr``
+  override the example's values.
 
 The defaults are BERT-Base widths on ``--device cuda``.  ``--device cpu``
 runs the plain PyTorch path (pass small widths there); without a CUDA
@@ -41,19 +56,21 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from flexflow_tpu_torch import models as zoo
 from flexflow_tpu_torch.config import FFConfig
 from flexflow_tpu_torch.device import DEFAULT_DEVICE, resolve_device
 from flexflow_tpu_torch.fftype import LossType, MetricsType
 from flexflow_tpu_torch.model import FFModel
+from flexflow_tpu_torch.models.dlrm_data import load_criteo, synthetic_dlrm
 from flexflow_tpu_torch.models.transformer import (
     BERT_BASE, GPT2_SMALL, gpt_decoder, gpt_generate, transformer_encoder,
 )
 from flexflow_tpu_torch.ops.cuda import flash_attention as fa
-from flexflow_tpu_torch.optimizer import AdamOptimizer
+from flexflow_tpu_torch.optimizer import AdamOptimizer, SGDOptimizer
 from flexflow_tpu_torch.runtime.faults import InjectedFault
 
-__all__ = ["FIT_METRICS", "build_model", "make_batch", "run", "make_token_data", "build_gpt",
-           "make_gpt_batches", "main"]
+__all__ = ["FIT_METRICS", "ZOO", "build_model", "make_batch", "run", "make_token_data",
+           "build_gpt", "make_gpt_batches", "build_zoo", "make_zoo_data", "main"]
 
 LR = 1e-4  # Adam's alpha, as in run_bench
 SEED = 0
@@ -260,10 +277,156 @@ def _gpt_main(a, dev) -> int:
     return 0
 
 
+# --------------------------------------------------------------- the zoo
+_ACC, _SCCE, _MSE = (MetricsType.ACCURACY, MetricsType.SPARSE_CATEGORICAL_CROSSENTROPY,
+                     MetricsType.MEAN_SQUARED_ERROR)
+_CNN = {"alexnet": "alexnet", "resnet": "resnet", "resnext50": "resnext50",
+        "inception": "inception_v3"}
+# each app's example defaults: batch, epochs, SGD learning rate, samples
+# (as a function of the batch), loss and metrics
+ZOO = {
+    "mlp": dict(batch=64, epochs=5, lr=0.05, samples=lambda b: 4096,
+                loss=LossType.SPARSE_CATEGORICAL_CROSSENTROPY, metrics=(_ACC, _SCCE)),
+    **{name: dict(batch=16, epochs=1, lr=0.01, samples=lambda b: 8 * b,
+                  loss=LossType.SPARSE_CATEGORICAL_CROSSENTROPY, metrics=(_ACC, _SCCE))
+       for name in _CNN},
+    **{name: dict(batch=64, epochs=2, lr=0.01, samples=lambda b: 32 * b,
+                  loss=LossType.MEAN_SQUARED_ERROR_AVG_REDUCE, metrics=(_MSE,))
+       for name in ("dlrm", "xdl")},
+    "candle_uno": dict(batch=64, epochs=2, lr=1e-3, samples=lambda b: 16 * b,
+                       loss=LossType.MEAN_SQUARED_ERROR_AVG_REDUCE, metrics=(_MSE,)),
+    "moe": dict(batch=64, epochs=3, lr=1e-3, samples=lambda b: 4096,
+                loss=LossType.SPARSE_CATEGORICAL_CROSSENTROPY, metrics=(_ACC, _SCCE)),
+    "moe_encoder": dict(batch=64, epochs=3, lr=1e-3, samples=lambda b: 16 * b,
+                        loss=LossType.SPARSE_CATEGORICAL_CROSSENTROPY, metrics=(_ACC, _SCCE)),
+}
+MOE_ENCODER_SEQ = 64
+
+
+def _blobs(n: int, dim: int, classes: int, rng) -> Tuple[List[np.ndarray], np.ndarray]:
+    """The MNIST-like blobs of ``examples/mlp/mnist_mlp.py``."""
+    centers = rng.normal(size=(classes, dim)).astype(np.float32) * 2
+    y = rng.integers(0, classes, size=n)
+    x = (centers[y] + rng.normal(size=(n, dim))).astype(np.float32)
+    return [x], y.astype(np.int32).reshape(n, 1)
+
+
+def build_zoo(name: str, *, batch: int, device, compute_dtype: str = "float32",
+              lr: Optional[float] = None, seed: int = SEED, size: int = 128,
+              classes: int = 10, embedding_size: int = 65536, num_tables: int = 4,
+              sparse_feature_size: int = 64, bag_size: int = 1, fused: bool = False,
+              dense_dim: Optional[int] = None) -> FFModel:
+    """Zoo model ``name`` (a key of :data:`ZOO`) compiled with SGD at
+    ``lr`` (the example's by default), the example's loss and metrics,
+    weights drawn from ``seed``.  ``dense_dim``: a Criteo file's dense
+    width, which sizes DLRM's bottom and top MLPs as the example sizes
+    them."""
+    spec = ZOO[name]
+    model = FFModel(FFConfig(batch_size=batch, compute_dtype=compute_dtype, seed=seed,
+                             device=str(device)))
+    if name == "mlp":
+        zoo.mlp(model, batch, 784, (512, 512), classes)
+    elif name in _CNN:
+        getattr(zoo, _CNN[name])(model, batch, num_classes=classes, height=size, width=size)
+    elif name in ("dlrm", "xdl"):
+        kw = dict(embedding_sizes=(embedding_size,) * num_tables,
+                  sparse_feature_size=sparse_feature_size, bag_size=bag_size)
+        if dense_dim is not None:  # a Criteo file: 1-wide head on its labels
+            sfs = sparse_feature_size
+            kw.update(dict(mlp_bot=(dense_dim, 64, sfs), mlp_top=(sfs * (num_tables + 1), 32, 1))
+                      if name == "dlrm" else dict(mlp=(64, 32, 1)))
+        (zoo.dlrm if name == "dlrm" else zoo.xdl)(model, batch, **kw)
+    elif name == "candle_uno":
+        zoo.candle_uno(model, batch)
+    elif name == "moe":
+        zoo.moe_classifier(model, batch, fused=fused)
+    else:
+        zoo.moe_encoder(model, batch, MOE_ENCODER_SEQ, fused=fused)
+    model.compile(optimizer=SGDOptimizer(lr=spec["lr"] if lr is None else lr),
+                  loss_type=spec["loss"], metrics=list(spec["metrics"]))
+    return model
+
+
+def make_zoo_data(name: str, model: FFModel, n: int, seed: int = SEED
+                  ) -> Tuple[List[np.ndarray], np.ndarray]:
+    """``n`` samples for ``model`` (built by :func:`build_zoo`), drawn as
+    the app's example draws them, from one numpy seed, at the shapes of
+    the model's inputs."""
+    rng = np.random.default_rng(seed)
+    shapes = [t.shape[1:] for t in model.graph_inputs]
+    if name in ("mlp", "moe"):
+        classes = model.layers[-1].outputs[0].shape[-1]
+        return _blobs(n, shapes[0][0], classes, rng)
+    if name in ("dlrm", "xdl"):
+        vocabs = [l.attrs["num_entries"] for l in model.layers if l.name.startswith("emb_")]
+        out = model.layers[-1].outputs[0].shape[-1]
+        dense = shapes[-1][0] if name == "dlrm" else 4
+        return synthetic_dlrm(n, vocabs, bag_size=shapes[0][0], dense_dim=dense, label_dim=out,
+                              seed=seed, arch=name)
+    if name == "candle_uno":
+        xs = [rng.normal(size=(n,) + s).astype(np.float32) for s in shapes]
+        return xs, rng.normal(size=(n, 1)).astype(np.float32)
+    classes = model.layers[-1].outputs[0].shape[-1]
+    x = rng.normal(size=(n,) + shapes[0]).astype(np.float32)
+    return [x], rng.integers(0, classes, size=(n, 1)).astype(np.int32)
+
+
+def _zoo_main(a, dev) -> int:
+    """``--model <zoo app>``: the app's model through ``FFModel.fit``."""
+    name = a.model
+    if name == "cnn":
+        name = a.arch or "alexnet"
+    elif name == "dlrm" and a.arch:
+        name = a.arch
+    spec = ZOO[name]
+    batch = a.batch or spec["batch"]
+    epochs = a.epochs or spec["epochs"]
+    kw = dict(size=a.size, classes=a.classes or 10, embedding_size=a.embedding_size,
+              num_tables=a.num_tables, sparse_feature_size=a.sparse_feature_size,
+              bag_size=a.bag_size, fused=a.fused)
+    data = None
+    if a.data:
+        if name not in ("dlrm", "xdl"):
+            raise SystemExit(f"--data: a Criteo-format file feeds dlrm or xdl, not {name}")
+        xs, y = load_criteo(a.data, vocab_sizes=a.embedding_size)
+        kw.update(num_tables=len(xs) - 1, bag_size=xs[0].shape[1], dense_dim=xs[-1].shape[1])
+        data = (xs if name == "dlrm" else xs[:-1], y)
+    model = build_zoo(name, batch=batch, device=dev, compute_dtype=a.compute_dtype, lr=a.lr,
+                      **kw)
+    n = a.samples or spec["samples"](batch)
+    xs, y = data or make_zoo_data(name, model, n)
+    for k in fa.LAUNCHES:
+        fa.LAUNCHES[k] = 0
+    ex = model.executor
+    t0 = time.perf_counter()
+    pm = model.fit(xs, y, batch_size=batch, epochs=epochs, verbose=False)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    wall = time.perf_counter() - t0
+    rows = max(1, pm.train_all)
+    rec = {"model": name, "batch": batch, "epochs": epochs, "samples": len(y),
+           "loss_type": spec["loss"].value, "compute_dtype": a.compute_dtype,
+           "steps": ex._step_count, "fit_s": wall,
+           "step_ms_mean": wall / max(1, ex._step_count) * 1e3,
+           "samples_per_s": ex._step_count * batch / wall if wall > 0 else 0.0,
+           "last_epoch": {"samples": pm.train_all, "accuracy": pm.accuracy,
+                          "sparse_cce": pm.sparse_cce_loss / rows, "mse": pm.mse_loss / rows},
+           "host_syncs": ex.host_syncs, "parameters": model.num_parameters(),
+           "state_tensors": sum(len(ws) for ws in ex.state.values()),
+           "flash_launches": dict(fa.LAUNCHES), "device": str(dev),
+           "device_name": _device_name(dev)}
+    if a.data:
+        rec["data"] = a.data
+    print(json.dumps(rec), flush=True)
+    return 0
+
+
 def main(argv: Optional[List[str]] = None) -> int:
     p = argparse.ArgumentParser(prog="python -m flexflow_tpu_torch --train")
     p.add_argument("--device", default=DEFAULT_DEVICE)
-    p.add_argument("--model", choices=("bert", "gpt2"), default="bert")
+    p.add_argument("--model", choices=("bert", "gpt2", "cnn") + tuple(ZOO), default="bert")
+    p.add_argument("--arch", choices=tuple(_CNN) + ("dlrm", "xdl"),
+                   help="--model cnn: which CNN; --model dlrm: dlrm or xdl")
     p.add_argument("--fit", action="store_true",
                    help="the encoder on tokens through FFModel.fit and eval")
     p.add_argument("--hidden", type=int, help="override the model's width")
@@ -273,11 +436,11 @@ def main(argv: Optional[List[str]] = None) -> int:
     p.add_argument("--vocab", type=int, help="tokens: 30522 (--fit) or 50257 (gpt2)")
     p.add_argument("--batch", type=int, help="16, or 4 for gpt2")
     p.add_argument("--seq", type=int, help="512, or 1024 for gpt2")
-    p.add_argument("--classes", type=int, default=64)
+    p.add_argument("--classes", type=int, help="64 (bert), 10 (the zoo)")
     p.add_argument("--steps", type=int, help="5, or 3 for gpt2")
     p.add_argument("--compute-dtype", choices=("float32", "bfloat16"), default="float32")
-    p.add_argument("--epochs", type=int, default=2)
-    p.add_argument("--samples", type=int, default=160)
+    p.add_argument("--epochs", type=int, help="--fit: 2; the zoo: the example's")
+    p.add_argument("--samples", type=int, help="--fit: 160; the zoo: the example's")
     p.add_argument("--eval-samples", type=int, default=40)
     p.add_argument("--shuffle", action="store_true")
     p.add_argument("--checkpoint-every", type=int, default=0)
@@ -290,11 +453,21 @@ def main(argv: Optional[List[str]] = None) -> int:
                    default="off", help="--fit: the run-health monitor is not ported; "
                    "any mode but off raises NotImplementedError")
     p.add_argument("--generate", type=int, default=0, help="gpt2: greedy tokens after training")
+    p.add_argument("--lr", type=float, help="the zoo: SGD's learning rate (the example's)")
+    p.add_argument("--size", type=int, default=128, help="the CNNs: image height and width")
+    p.add_argument("--embedding-size", type=int, default=65536, help="dlrm/xdl: rows a table")
+    p.add_argument("--num-tables", type=int, default=4)
+    p.add_argument("--sparse-feature-size", type=int, default=64)
+    p.add_argument("--bag-size", type=int, default=1)
+    p.add_argument("--data", help="dlrm/xdl: a local Criteo-format file (.tsv, .npz, .h5)")
+    p.add_argument("--fused", action="store_true", help="moe, moe_encoder: the experts op")
     a = p.parse_args(argv)
 
     dev = resolve_device(a.device)
-    if dev.type == "cuda":
-        torch.backends.cuda.matmul.allow_tf32 = False
+    if a.model not in ("bert", "gpt2"):
+        return _zoo_main(a, dev)
+    a.classes = a.classes or 64
+    a.epochs, a.samples = a.epochs or 2, a.samples or 160
     if a.model == "gpt2":
         if a.steps is None:
             a.steps = 3

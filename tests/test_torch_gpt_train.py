@@ -171,8 +171,10 @@ def test_embed_add_broadcast_matches_jax():
 
 def test_parameter_op_matches_jax_and_refuses_state():
     """``parameter``: weight ``value`` of the given shape, Glorot uniform by
-    default as in the JAX op; a non-trainable or integer weight would be
-    executor state, which the port does not have, so it raises."""
+    default as in the JAX op.  A non-trainable float weight and an integer
+    one (zero-initialised) build as executor state, as in the JAX package:
+    no gradient and no optimizer slot, and their values match JAX's after
+    a training step."""
     attrs = dict(shape=(S, HID), trainable=True)
     jl = jtensor.Layer(jft.OperatorType.WEIGHT, "p", [], dict(attrs, dtype=jft.DataType.FLOAT))
     tl = ttensor.Layer(tft.OperatorType.WEIGHT, "p", [], dict(attrs, dtype=tft.DataType.FLOAT))
@@ -180,13 +182,53 @@ def test_parameter_op_matches_jax_and_refuses_state():
     assert (tw.name, tuple(tw.shape)) == (jw.name, tuple(jw.shape)) == ("value", (S, HID))
     assert type(tw.initializer).__name__ == type(jw.initializer).__name__ == "GlorotUniform"
     assert isinstance(tw.initializer, GlorotUniform)
-    tm = TModel(TConfig(device="cpu"))
-    out = tm.parameter((S, HID), name="pos")
-    assert out.shape == (S, HID) and tm.layers[-1].op_type is tft.OperatorType.WEIGHT
-    with pytest.raises(NotImplementedError, match="executor state"):
-        tm.parameter((S,), trainable=False)
-    with pytest.raises(NotImplementedError, match="executor state"):
-        tm.parameter((S,), dtype=tft.DataType.INT32)
+    for trainable, dt in ((False, "FLOAT"), (True, "INT32"), (False, "INT32")):
+        a = dict(shape=(S,), trainable=trainable)
+        jl = jtensor.Layer(jft.OperatorType.WEIGHT, "p", [],
+                           dict(a, dtype=getattr(jft.DataType, dt)))
+        tl = ttensor.Layer(tft.OperatorType.WEIGHT, "p", [],
+                           dict(a, dtype=getattr(tft.DataType, dt)))
+        (jw,), (tw,) = jget(jl.op_type).weights(jl), tget(tl.op_type).weights(tl)
+        assert tw.trainable is jw.trainable is False
+        assert type(tw.initializer).__name__ == type(jw.initializer).__name__
+
+    def build(m, ft):
+        x = m.create_tensor((2, HID))
+        w = m.parameter((S, HID), name="pos")
+        frozen = m.parameter((HID,), trainable=False, name="frozen")
+        m.parameter((S,), dtype=ft.DataType.INT32, name="ids")
+        h = m.add(m.dense(x, S, name="proj"), m.reduce_mean(w, axes=[1], name="wmean"),
+                  name="mix")
+        m.softmax(m.dense(m.add(x, frozen, name="shift"), S, name="head"), name="probs")
+        return h
+
+    jm = FFModel(FFConfig(batch_size=2))
+    build(jm, jft)
+    jm.compile(optimizer=AdamOptimizer(alpha=1e-3),
+               loss_type=LossType.SPARSE_CATEGORICAL_CROSSENTROPY,
+               mesh=MachineMesh((1, 1), ("data", "model")), seed=0)
+    tm = TModel(TConfig(device="cpu", batch_size=2))
+    out = build(tm, tft)
+    assert out.shape == (2, S) and tm.layers[1].op_type is tft.OperatorType.WEIGHT
+    tm.compile(topt.AdamOptimizer(alpha=1e-3))
+    ex = tm.executor
+    assert sorted(ex.state) == ["frozen", "ids"] and "pos" in ex.params
+    assert ex.state["ids"]["value"].dtype == torch.int32
+    assert not any(t.requires_grad for ws in ex.state.values() for t in ws.values())
+    assert sorted(ex.opt_state_by_name()["m"]) == sorted(ex.params)  # no slot for state
+    tm.set_weights(jm.get_weights())
+    rng = np.random.default_rng(2)
+    x = rng.normal(size=(2, HID)).astype(np.float32)
+    y = rng.integers(0, S, size=(2, 1)).astype(np.int32)
+    jloss = float(jm.executor.train_step([x], y)[0])
+    tloss = float(ex.train_step([x], y)[0])
+    assert abs(tloss - jloss) <= 1e-5 * abs(jloss)
+    jw, tw = jm.get_weights(), tm.get_weights()
+    assert sorted(jw) == sorted(tw)
+    for ln in jw:
+        for wn in jw[ln]:
+            np.testing.assert_allclose(tw[ln][wn], np.asarray(jw[ln][wn]), atol=1e-6, rtol=0)
+    np.testing.assert_array_equal(tw["ids"]["value"], np.zeros(S, np.int32))
 
 
 @pytest.mark.parametrize("kind", ["greedy", "sampled", "top_k", "top_p"])

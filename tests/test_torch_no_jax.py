@@ -84,6 +84,12 @@ def test_import_pulls_in_no_jax(tmp_path):
         # the fit loop, checkpoints and the decoder through FFModel
         "flexflow_tpu_torch.dataloader", "flexflow_tpu_torch.ops.embedding",
         "flexflow_tpu_torch.ops.parallel_ops",
+        # the single-device op set and the model zoo
+        "flexflow_tpu_torch.ops.conv", "flexflow_tpu_torch.ops.moe",
+        "flexflow_tpu_torch.initializer", "flexflow_tpu_torch.models.mlp",
+        "flexflow_tpu_torch.models.cnn", "flexflow_tpu_torch.models.dlrm",
+        "flexflow_tpu_torch.models.dlrm_data", "flexflow_tpu_torch.models.candle_uno",
+        "flexflow_tpu_torch.models.moe",
     }
     assert list(tmp_path.iterdir()) == []  # importing wrote nothing
     built_after = sorted(build_dir.glob("*")) if build_dir.exists() else []
